@@ -1,0 +1,101 @@
+"""vct_torch's CUDA kernels against their plain versions, on the card.
+
+Every case is marked ``cuda`` and skips without an NVIDIA GPU. The file
+imports no JAX, so it runs on a machine that has only PyTorch; there, skip
+the root conftest (it exists for JAX's CPU re-exec):
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
+
+Tolerances: SAD and flow exact (both sides sum exactly in integers); the
+scan atol = rtol = 1e-5 (f32, summation order and fused multiply-adds);
+logits atol = rtol = 1e-4 with TF32 off.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vct_torch.core.config import ModelConfig
+from vct_torch.data import preprocess
+from vct_torch.models import build_model
+from vct_torch.ops.pair_scores import pair_scores, pair_scores_ref
+from vct_torch.ops.selective_scan import selective_scan, selective_scan_ref
+from vct_torch.serve.deployment import classify_videos, sample_decoded_clips
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _clips(shape, seed=0):
+    return np.random.RandomState(seed).randint(0, 256, size=shape, dtype=np.uint8)
+
+
+@pytest.mark.parametrize("method", ["sad", "flow"])
+@pytest.mark.parametrize("shape", [(4, 19, 80, 80, 3), (2, 21, 16, 48, 1), (3, 13, 7, 5, 1)])
+def test_pair_scores_kernel_matches_plain(cuda_device, shape, method):
+    x = torch.from_numpy(_clips(shape)).to(cuda_device)
+    before = pair_scores.launches
+    got = pair_scores(x, method)
+    want = pair_scores_ref(x, method)
+    torch.cuda.synchronize()
+    assert pair_scores.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dims", [(4, 60, 16, 32), (2, 70, 256, 16)])
+def test_selective_scan_kernel_matches_plain(cuda_device, dims, reverse):
+    rng = np.random.RandomState(0)
+    B, L, D, N = dims
+    args = [
+        rng.randn(B, L, D), np.abs(rng.randn(B, L, D)) * 0.5, -np.abs(rng.randn(D, N)),
+        rng.randn(B, L, N), rng.randn(B, L, N),
+    ]
+    args = [torch.tensor(a, dtype=torch.float32, device=cuda_device) for a in args]
+    got = selective_scan(*args, reverse=reverse)
+    want = selective_scan_ref(*args, reverse=reverse)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_kernel_wrappers_refuse_what_they_cannot_take(cuda_device):
+    x = torch.from_numpy(_clips((2, 5, 8, 8, 3))).to(cuda_device)
+    with pytest.raises(TypeError):
+        pair_scores(x.to(torch.int32))
+    with pytest.raises(ValueError):
+        pair_scores(x.transpose(2, 3))
+    args = [torch.rand(2, 5, 8, device=cuda_device)] * 2 + [
+        -torch.rand(8, 12, device=cuda_device), torch.rand(2, 5, 12, device=cuda_device),
+        torch.rand(2, 5, 12, device=cuda_device),
+    ]
+    with pytest.raises(ValueError, match="N="):
+        selective_scan(*args)
+
+
+def test_small_serving_path_goes_through_the_kernels(cuda_device):
+    T = 4
+    cfg = ModelConfig(num_classes=3, cnn_backbone="resnet18", scan_impl="pallas")
+    model = build_model(cfg, T, seed=0)
+    videos = [_clips((n, 16, 16, 3), seed=n) for n in (3, 7, 12)]
+    pair_scores.launches = selective_scan.launches = 0
+    clips = sample_decoded_clips(videos, "sad", T)
+    probs = classify_videos(model, clips, batch_size=2)
+    assert pair_scores.launches == 2  # the two videos longer than T
+    assert selective_scan.launches == 2 * cfg.rnn_layer  # two forwards
+    assert probs.shape == (3, 3) and np.isfinite(probs).all()
+    np.testing.assert_allclose(probs.sum(-1), 1.0, rtol=1e-5)
+    with torch.inference_mode():
+        want = model.to("cpu")(clips.cpu())
+        got = model.to(cuda_device)(clips)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    idx_cpu = preprocess.sample_indices(torch.from_numpy(_clips((2, 12, 16, 16, 3))), T, "sad")
+    idx_gpu = preprocess.sample_indices(torch.from_numpy(_clips((2, 12, 16, 16, 3))).to(cuda_device), T, "sad")
+    assert torch.equal(idx_cpu, idx_gpu.cpu())

@@ -1,0 +1,111 @@
+"""vct_torch kernels (K1 pair_scores, K3 selective_scan) against vct.
+
+On the CPU the port's wrappers run their plain PyTorch versions; the vct
+side runs its Pallas kernels in interpret mode, as tests/test_pallas_ops.py
+does. tests/test_torch_cuda.py holds the CUDA kernels against their plain
+versions on the card.
+
+Tolerances: SAD is bit-exact (both sides sum exactly in integers); flow
+rtol 1e-5 (vct accumulates flow in f32, the port sums exactly); the scan
+atol = rtol = 1e-4 (test_pallas_ops.py's tolerance).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vct.ops.pair_scores_pallas import pair_scores as vct_pair_scores
+from vct.ops.selective_scan_pallas import selective_scan_pallas as vct_selective_scan
+from vct_torch.ops.pair_scores import pair_scores
+from vct_torch.ops.selective_scan import selective_scan
+
+# (B, L, H, W, C): L=2, the kernel-audit geometries (odd H, C=1, L crossing
+# vct's 16-transition chunk), and odd H*W*C.
+PAIR_SHAPES = [
+    (2, 2, 5, 7, 3),
+    (2, 12, 16, 16, 3),
+    (1, 9, 11, 44, 3),
+    (1, 7, 9, 86, 3),
+    (2, 21, 16, 48, 1),
+    (1, 11, 5, 7, 1),
+]
+
+
+def _clips(shape, seed=0):
+    return np.random.RandomState(seed).randint(0, 256, size=shape, dtype=np.uint8)
+
+
+@pytest.mark.parametrize("method", ["sad", "flow"])
+@pytest.mark.parametrize("shape", PAIR_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_pair_scores_matches_vct(shape, method):
+    x = _clips(shape)
+    want = np.asarray(vct_pair_scores(jnp.asarray(x), method))
+    got = pair_scores(torch.from_numpy(x), method).numpy()
+    assert got.shape == want.shape == (shape[0], shape[1] - 1)
+    assert got.dtype == np.float32
+    if method == "sad":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("L", [0, 1])
+def test_pair_scores_short_clip(L):
+    x = _clips((3, L, 4, 4, 3))
+    want = np.asarray(vct_pair_scores(jnp.asarray(x), "sad"))
+    got = pair_scores(torch.from_numpy(x), "sad").numpy()
+    assert got.shape == want.shape == (3, 0)
+
+
+def test_pair_scores_static_frames_score_zero():
+    frame = _clips((1, 1, 6, 6, 3))
+    x = np.repeat(frame, 5, axis=1)
+    want = np.asarray(vct_pair_scores(jnp.asarray(x), "sad"))
+    got = pair_scores(torch.from_numpy(x), "sad").numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.zeros((1, 4), np.float32))
+
+
+def test_pair_scores_rejects_float():
+    x = _clips((1, 3, 4, 4, 3)).astype(np.float32)
+    with pytest.raises(TypeError):
+        vct_pair_scores(jnp.asarray(x), "sad")
+    with pytest.raises(TypeError):
+        pair_scores(torch.from_numpy(x), "sad")
+
+
+def test_pair_scores_unknown_method():
+    x = _clips((1, 3, 4, 4, 3))
+    with pytest.raises(KeyError):
+        vct_pair_scores(jnp.asarray(x), "ssim")
+    with pytest.raises(KeyError):
+        pair_scores(torch.from_numpy(x), "ssim")
+
+
+def _scan_inputs(B, L, D, N, seed=0):
+    rng = np.random.RandomState(seed)
+    return (
+        rng.randn(B, L, D).astype(np.float32),
+        (np.abs(rng.randn(B, L, D)) * 0.5).astype(np.float32),
+        (-np.abs(rng.randn(D, N))).astype(np.float32),
+        rng.randn(B, L, N).astype(np.float32),
+        rng.randn(B, L, N).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dims", [(2, 12, 8, 4), (2, 9, 16, 32)], ids=["small", "deployed_widths"])
+def test_selective_scan_matches_vct(dims, reverse):
+    args = _scan_inputs(*dims)
+    want = np.asarray(vct_selective_scan(*map(jnp.asarray, args), reverse=reverse))
+    got = selective_scan(*map(torch.from_numpy, args), reverse=reverse).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_selective_scan_rejects_bad_shapes():
+    u, delta, A, B, C = map(torch.from_numpy, _scan_inputs(2, 5, 8, 4))
+    with pytest.raises(ValueError):
+        selective_scan(u, delta, A[:4], B, C)
+    with pytest.raises(ValueError):
+        selective_scan(u, delta, A, B[:, :3], C)

@@ -1,0 +1,17 @@
+"""vct_torch — the PyTorch/CUDA port of ``vct`` for NVIDIA Hopper (H100).
+
+The package mirrors ``vct``'s module layout so each module's counterpart is
+easy to find. It imports nothing of ``vct`` (nor JAX): what it needs from the
+framework-free ``vct`` modules it keeps as its own copies. Its hand-written
+CUDA kernels live in ``vct_torch/csrc`` and are built on first CUDA use
+(``vct_torch.ops._build``).
+
+This slice covers the deployed serving path: on-device SAD/flow frame
+selection (kernel ``pair_scores``), the LRCN classifier with a ResNet backbone
+and a Mamba head (kernel ``selective_scan``), and the batched softmax serving
+entry points in ``vct_torch.serve.deployment``.
+"""
+
+from vct_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

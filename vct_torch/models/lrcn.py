@@ -1,0 +1,126 @@
+"""LRCN — frozen CNN backbone + adapter MLP + Mamba temporal head.
+
+Port of ``vct/models/lrcn.py``:
+
+    (B, T, H, W, 3) ──flatten B·T──► backbone ──► (B, T, F)
+      ──► adapter (canonical 3-stage or Adapt DSL)
+      ──► Mamba residual blocks
+      ──► rnn_out "all" (flatten T·D) | "last" ([:, -1])
+      ──► multiclass MLP head | per-class binary head
+
+The backbone sees the flattened frames as an NCHW view in channels-last
+memory (no copy). With ``compute_dtype="bfloat16"`` it runs under bf16
+autocast and its features come back as f32, so the head always runs in f32
+(the reference's promotion of bf16 features against f32 parameters). The
+LSTM/GRU heads are not ported yet (ROADMAP Queue 1, next slice).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from vct_torch.core.config import ModelConfig
+from vct_torch.models.backbones import build_backbone
+from vct_torch.models.layers import AdaptDSL, CanonicalAdapter, MultiBinaryHead, MulticlassHead
+from vct_torch.models.ssm import MambaResidualBlock
+
+__all__ = ["LRCN", "build_lrcn"]
+
+
+class LRCN(nn.Module):
+    def __init__(
+        self,
+        num_classes: int,
+        sequence_length: int,
+        hidden_size: int,
+        rnn_input_size: int,
+        cnn_backbone: str = "resnet50",
+        rnn_type: str = "mamba",
+        rnn_layer: int = 3,
+        rnn_out: str = "all",
+        bidirectional: bool = False,
+        classif_mode: str = "multiclass",
+        dropout: float = 0.25,
+        adapt_mode: str = "",
+        scan_impl: str = "associative",
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        if rnn_type != "mamba":
+            raise NotImplementedError(
+                f"rnn_type={rnn_type!r}: the LSTM/GRU heads are not ported to "
+                "vct_torch yet (ROADMAP Queue 1, the next slice)"
+            )
+        if rnn_out not in ("all", "last"):
+            raise ValueError(f"rnn_out must be 'all' or 'last', got {rnn_out!r}")
+        self.rnn_out = rnn_out
+        self.dtype = dtype
+        self.cnn_backbone, feat = build_backbone(cnn_backbone)
+        if adapt_mode:
+            self.adapt = AdaptDSL(feat, rnn_input_size, mode=adapt_mode, dropout=dropout)
+        else:
+            self.adapt = CanonicalAdapter(feat, rnn_input_size, dropout=dropout)
+        # Block i: ResidualBlock(rnn_input, 2*rnn_input, n_state=hidden,
+        # dt_rank=hidden), named mamba_{i} as in the reference.
+        self.blocks = [f"mamba_{i}" for i in range(rnn_layer)]
+        for name in self.blocks:
+            self.add_module(name, MambaResidualBlock(
+                d_model=rnn_input_size,
+                d_inner=rnn_input_size * 2,
+                n_state=hidden_size,
+                dt_rank=hidden_size,
+                bidirectional=bidirectional,
+                scan_impl=scan_impl,
+            ))
+        pooled = rnn_input_size * (sequence_length if rnn_out == "all" else 1)
+        if classif_mode == "multiclass":
+            self.head = MulticlassHead(pooled, num_classes, dropout=dropout)
+        else:
+            self.head = MultiBinaryHead(pooled, num_classes)
+
+    def forward(self, x, *, from_features: bool = False, features_only: bool = False):
+        if from_features:
+            return self._head(x)
+        feats = self._backbone_features(x)
+        if features_only:
+            return feats
+        return self._head(feats)
+
+    def _backbone_features(self, x):
+        b, t = x.shape[0], x.shape[1]
+        # (B·T, H, W, 3) -> NCHW view; its strides are channels-last already.
+        frames = x.reshape((b * t,) + tuple(x.shape[2:])).permute(0, 3, 1, 2)
+        if self.dtype == torch.bfloat16:
+            with torch.autocast(device_type=frames.device.type, dtype=torch.bfloat16):
+                feats = self.cnn_backbone(frames)
+        else:
+            feats = self.cnn_backbone(frames.to(self.dtype))
+        return feats.to(torch.float32).reshape(b, t, -1)
+
+    def _head(self, feats):
+        h = self.adapt(feats.to(torch.float32))
+        for name in self.blocks:
+            h = getattr(self, name)(h)
+        pooled = h.reshape(h.shape[0], -1) if self.rnn_out == "all" else h[:, -1, :]
+        return self.head(pooled)
+
+
+def build_lrcn(cfg: ModelConfig, sequence_length: int) -> LRCN:
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    return LRCN(
+        num_classes=cfg.num_classes,
+        sequence_length=sequence_length,
+        hidden_size=cfg.resolved_hidden_size,
+        rnn_input_size=cfg.rnn_input_size,
+        cnn_backbone=cfg.cnn_backbone,
+        rnn_type=cfg.rnn_type,
+        rnn_layer=cfg.rnn_layer,
+        rnn_out=cfg.rnn_out,
+        bidirectional=cfg.bidirectional,
+        classif_mode=cfg.classif_mode,
+        dropout=cfg.dropout,
+        adapt_mode=cfg.adapt if cfg.use_adapt_dsl else "",
+        scan_impl=cfg.scan_impl,
+        dtype=dtype,
+    )

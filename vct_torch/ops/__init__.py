@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels of the port, each beside its plain version.
+
+* ``pair_scores`` (K1) — SAD / flow pair scores, ``csrc/pair_scores.cu``
+* ``selective_scan`` (K3) — Mamba scan forward, ``csrc/selective_scan.cu``
+
+Every wrapper takes a CPU tensor to its plain PyTorch version and a CUDA
+tensor to its kernel, and counts its kernel launches in ``<wrapper>.launches``.
+"""

@@ -1,0 +1,123 @@
+"""Build and load the port's CUDA kernels (``vct_torch/csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into an object file, all
+sources at once, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``. The build happens on first CUDA
+use, into ``.vct_torch_build/<hash>/`` at the checkout's root (listed in
+``.gitignore``), keyed by a hash of the sources and flags, so a fresh
+checkout builds everything from its own sources and an unchanged one reuses
+the library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+__all__ = ["SOURCES", "build_dir", "check", "load_kernels"]
+
+_PKG = Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+_BUILD_ROOT = _PKG.parent / ".vct_torch_build"
+SOURCES = ("common.cu", "pair_scores.cu", "selective_scan.cu")
+_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+_LIB_NAME = "libvct_torch_kernels.so"
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def build_dir() -> Path:
+    """Directory of the library built from the current sources."""
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    return _BUILD_ROOT / h.hexdigest()[:16]
+
+
+def _build(out_dir: Path) -> Path:
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tmp = Path(tempfile.mkdtemp(prefix="tmp-", dir=out_dir))
+    try:
+        procs = []
+        for name in SOURCES:
+            obj = tmp / (Path(name).stem + ".o")
+            cmd = [nvcc, *_FLAGS, "-c", str(_CSRC / name), "-o", str(obj)]
+            procs.append((name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+        log, failed = [], []
+        for name, _, proc in procs:
+            out, _ = proc.communicate()
+            log.append(f"== {name} (rc {proc.returncode})\n{out}")
+            if proc.returncode != 0:
+                failed.append(name)
+        (out_dir / "build.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed on {failed}:\n" + "\n".join(log)
+            )
+        lib_tmp = tmp / _LIB_NAME
+        link = subprocess.run(
+            [nvcc, "-shared", *[str(o) for _, o, _ in procs], "-o", str(lib_tmp)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        lib = out_dir / _LIB_NAME
+        os.replace(lib_tmp, lib)  # atomic: a concurrent loader sees all or nothing
+        return lib
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _declare(lib) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.vct_pair_scores.argtypes = [p, p, i, i, ll, i, p]
+    lib.vct_pair_scores.restype = i
+    lib.vct_selective_scan_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.vct_selective_scan_fwd.restype = i
+    lib.vct_error_string.argtypes = [i]
+    lib.vct_error_string.restype = ctypes.c_char_p
+
+
+def load_kernels():
+    """The loaded kernel library, built first if its sources changed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib_path = build_dir() / _LIB_NAME
+            if not lib_path.is_file():
+                lib_path = _build(lib_path.parent)
+            lib = ctypes.CDLL(str(lib_path))
+            _declare(lib)
+            _lib = lib
+        return _lib
+
+
+def check(lib, err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = lib.vct_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
