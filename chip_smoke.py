@@ -15,7 +15,14 @@ line):
    bit-exact, flow rtol 1e-6 (both sum exactly in integers);
 4. K3 ``selective_scan`` against ``selective_scan_ref`` on the card:
    atol = rtol = 1e-5 (f32, summation order and fused multiply-adds);
-5. the main path — the deployed config (resnet50 bf16 backbone, 3 Mamba
+5. K2 ``lstm_stack`` / ``gru_stack`` and K5 ``lstm_scan`` / ``gru_scan``
+   against their plain versions on the card, TF32 off, atol = rtol = 1e-5:
+   the bench stack (B=32, T=40, H=56, L=4), a served request (B=4), the
+   kernel's shared-memory plans (H=96 LSTM: W_hh staged, W_ih read through L2;
+   H=256: both weights through L2; H=512, T=128: the previous layer's
+   outputs through L2 too), an odd H=5, T=1, and K5 forward and through
+   the time flip;
+6. the Mamba path — the deployed config (resnet50 bf16 backbone, 3 Mamba
    blocks, rnn_input 8, T=60, 80x80, scan_impl "pallas") with seeded
    weights serves three requests of four decoded videos each through
    ``sample_decoded_clips`` and ``classify_and_display``, with the kernels'
@@ -25,9 +32,18 @@ line):
    frame indices, logits atol = rtol = 1e-4, TF32 off), and an f32 copy
    of the model on the card is held against the same model on the CPU
    (logits atol = rtol = 1e-3);
-6. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
-   launches, error, time, plain time and bound, and a line of extra
-   timings at the other shapes.
+7. the LSTM/GRU path — the UCF50 geometry (resnet50 bf16, rnn_input 512,
+   H=56, 4 layers, T=40, 80x80, scan_impl "pallas") serves one request of
+   four videos for each of four heads (LSTM and GRU, uni- and
+   bidirectional), with the launch counts read around each: one K2 launch
+   per unidirectional forward, 2 x 4 K5 launches per bidirectional one;
+   for the LSTM uni head a bench-shaped batch (B=32, L=80, ragged lengths)
+   is timed as clips/s, held against the plain path (equal frame indices,
+   logits atol = rtol = 1e-4) and against the CPU in f32 (1e-3);
+8. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
+   launches, error, time, plain time, bound and, for K2/K5, cuDNN's
+   ``nn.LSTM`` / ``nn.GRU`` time, and a line of extra timings at the other
+   shapes.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -49,6 +65,18 @@ HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 
 T, H, W = 60, 80, 80
+
+# The UCF50 geometry bench.py times by default, with the kernels' scan_impl.
+T_UCF50 = 40
+UCF50 = dict(cnn_backbone="resnet50", rnn_input_size=512, hidden_size=56, rnn_layer=4,
+             rnn_out="all", scan_impl="pallas")
+# K2 / K5 entry points and the TPU kernels they replace.
+RNN_KERNELS = {
+    "lstm_stack": "vct/ops/lstm_pallas.py:354",
+    "gru_stack": "vct/ops/lstm_pallas.py:355",
+    "lstm_scan": "vct/ops/lstm_pallas.py:352",
+    "gru_scan": "vct/ops/lstm_pallas.py:353",
+}
 
 
 def _gpu_line() -> str:
@@ -155,6 +183,50 @@ def _check_selective_scan(torch, gen):
     return err
 
 
+def _rnn_inputs(torch, gen, n_gates, B, T, Hd, L):
+    """Gate inputs and weights drawn like the model's: U(-1/sqrt(H), 1/sqrt(H))."""
+    k, GH = Hd ** -0.5, n_gates * Hd
+    xp = torch.randn(B, T, GH, generator=gen)
+    ws = [(torch.rand(s, generator=gen) * 2 - 1) * k
+          for s in ((L, Hd, GH), (L, GH), (L - 1, Hd, GH), (L - 1, GH))]
+    return [t.cuda() for t in [xp] + ws]
+
+
+def _check_rnn(torch, gen):
+    from vct_torch.ops import lstm as ops
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = dict.fromkeys(("lstm_stack", "gru_stack", "lstm_scan", "gru_scan"), 0.0)
+    # (B, T, H, L): the bench stack, a served request, the three smaller
+    # shared-memory plans (see phase 5 above), an odd H, T=1.
+    shapes = [(32, 40, 56, 4), (4, 40, 56, 4), (2, 16, 96, 2), (2, 16, 256, 2),
+              (1, 128, 512, 2), (3, 7, 5, 3), (2, 1, 56, 2)]
+    for cell, n_gates in (("lstm", 4), ("gru", 3)):
+        stack, scan = getattr(ops, f"{cell}_stack"), getattr(ops, f"{cell}_scan")
+        scan_ref = getattr(ops, f"{cell}_scan_ref")
+        for B, T_, Hd, L in shapes:
+            xp, w_hh, b_hh, w_ih, b_ih = _rnn_inputs(torch, gen, n_gates, B, T_, Hd, L)
+            cases = [
+                (f"{cell}_stack", stack(xp, w_hh, b_hh, w_ih, b_ih),
+                 ops.stack_ref(xp, w_hh, b_hh, w_ih, b_ih)),
+                (f"{cell}_scan", scan(xp, w_hh[0], b_hh[0]), scan_ref(xp, w_hh[0], b_hh[0])),
+            ]
+            if (B, T_, Hd) == (32, 40, 56):  # K5 through the flip, as the reverse direction runs
+                flip = torch.flip(xp, dims=(1,))
+                cases.append((f"{cell}_scan", torch.flip(scan(flip, w_hh[1], b_hh[1]), dims=(1,)),
+                              torch.flip(scan_ref(flip, w_hh[1], b_hh[1]), dims=(1,))))
+            torch.cuda.synchronize()
+            for name, got, want in cases:
+                torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+                err = (got - want).abs().max().item()
+                errs[name] = max(errs[name], err)
+                layers = f" L={L}" if name.endswith("stack") else ""
+                print(f"  {name} B={B} T={T_} H={Hd}{layers}: max abs err {err}")
+    print(f"K2/K5 lstm/gru stack and scan: {len(shapes)} shapes each agree; max abs err {errs}")
+    return errs
+
+
 def _synthetic_videos(lengths, seed):
     """Decoded uint8 videos with static runs (tied SAD scores) and noisy runs."""
     rng = np.random.RandomState(seed)
@@ -175,18 +247,86 @@ def _synthetic_videos(lengths, seed):
 
 
 def _set_scan_impl(model, impl):
+    """Switch the temporal head between the kernels ("pallas") and their
+    plain versions ("scan")."""
+    from vct_torch.models.recurrent import GRU, LSTM
     from vct_torch.models.ssm import ParallelMamba
 
     for m in model.modules():
-        if isinstance(m, ParallelMamba):
+        if isinstance(m, (ParallelMamba, LSTM, GRU)):
             m.scan_impl = impl
 
 
-def _main_path(torch, gpu):
+def _check_served(results, names):
+    if [r["video_name"] for r in results] != names:
+        raise AssertionError("served results do not match the requests")
+    for r in results:
+        scores = np.asarray(r["scores"])
+        if not (np.isfinite(scores).all() and abs(scores.sum() - 1.0) < 1e-5):
+            raise AssertionError(f"bad probabilities for {r['video_name']}: {scores}")
+
+
+def _bench_and_hold(torch, model, cfg32, seq_len, gpu, label, seed):
+    """Time a bench-shaped step (B=32, raw L=2T, ragged lengths, SAD
+    selection, forward) as clips/s; hold the kernel path against the plain
+    path, and an f32 copy of the model on the card against the CPU."""
     import vct_torch.data.preprocess as preprocess
+    from vct_torch.models import build_model
+    from vct_torch.ops.pair_scores import pair_scores_ref
+
+    rng = np.random.RandomState(seed)
+    raw = torch.from_numpy(rng.randint(0, 256, (32, 2 * seq_len, H, W, 3), dtype=np.uint8)).cuda()
+    lens = torch.from_numpy(rng.randint(seq_len + 1, 2 * seq_len + 1, size=32)).cuda()
+
+    def sample():
+        return preprocess.device_sample_clips(raw, seq_len, method="sad", lengths=lens)
+
+    torch.backends.cudnn.deterministic = False
+    with torch.inference_mode():
+        x = sample()
+        feats = model(x, features_only=True)
+        step_ms = _events_ms(torch, lambda: model(sample()), iters=10)
+        sample_ms = _events_ms(torch, sample, iters=10)
+        forward_ms = _events_ms(torch, lambda: model(x), iters=10)
+        backbone_ms = _events_ms(torch, lambda: model(x, features_only=True), iters=10)
+        head_ms = _events_ms(torch, lambda: model(feats, from_features=True), iters=10)
+    print(json.dumps({
+        "config": label, "serving_clips_per_s": 32 * 1e3 / step_ms, "batch": 32,
+        "raw_len": 2 * seq_len, "T": seq_len, "ms_per_batch": step_ms, "sampling_ms": sample_ms,
+        "forward_ms": forward_ms, "backbone_ms": backbone_ms, "head_ms": head_ms, "gpu": gpu,
+    }))
+
+    # --- kernel path vs the same path with the plain versions ------------
+    torch.backends.cudnn.deterministic = True  # same conv algorithms on both paths
+    with torch.inference_mode():
+        idx_k = preprocess.sample_indices(raw, seq_len, "sad", lens)
+        logits_k = model(sample())
+        _set_scan_impl(model, "scan")
+        with mock.patch.object(preprocess, "pair_scores", pair_scores_ref):
+            idx_p = preprocess.sample_indices(raw, seq_len, "sad", lens)
+            logits_p = model(sample())
+        _set_scan_impl(model, "pallas")
+    if not torch.equal(idx_k, idx_p):
+        raise AssertionError(f"{label}: kernel and plain SAD selection picked different frames")
+    torch.testing.assert_close(logits_k, logits_p, atol=1e-4, rtol=1e-4)
+    print(f"{label}: kernel path == plain path: frame indices equal, logits max abs err "
+          f"{(logits_k - logits_p).abs().max().item()}")
+    torch.backends.cudnn.deterministic = False
+
+    # --- the card against the CPU, f32, same seed -------------------------
+    with torch.inference_mode():
+        on_card = build_model(cfg32, seq_len, seed=0)(sample()[:2]).cpu()
+        x_cpu = preprocess.device_sample_clips(raw[:2].cpu(), seq_len, method="sad",
+                                               lengths=lens[:2].cpu())
+        on_cpu = build_model(cfg32, seq_len, device="cpu", seed=0)(x_cpu)
+    torch.testing.assert_close(on_card, on_cpu, atol=1e-3, rtol=1e-3)
+    print(f"{label}: f32 card vs CPU logits max abs err {(on_card - on_cpu).abs().max().item()}")
+
+
+def _main_path(torch, gpu):
     from vct_torch.core.config import ModelConfig
     from vct_torch.models import build_model
-    from vct_torch.ops.pair_scores import pair_scores, pair_scores_ref
+    from vct_torch.ops.pair_scores import pair_scores
     from vct_torch.ops.selective_scan import selective_scan
     from vct_torch.serve.deployment import classify_and_display, sample_decoded_clips
 
@@ -215,64 +355,105 @@ def _main_path(torch, gpu):
     print(f"main path launches {launches} (expected {want})")
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != expected {want}")
-    if [r["video_name"] for r in results] != names:
-        raise AssertionError("served results do not match the requests")
-    for r in results:
-        scores = np.asarray(r["scores"])
-        if not (np.isfinite(scores).all() and abs(scores.sum() - 1.0) < 1e-5):
-            raise AssertionError(f"bad probabilities for {r['video_name']}: {scores}")
-
-    # --- a bench-shaped batch: B=32, L=120 raw, ragged lengths -----------
-    rng = np.random.RandomState(1)
-    raw = torch.from_numpy(rng.randint(0, 256, (32, 2 * T, H, W, 3), dtype=np.uint8)).cuda()
-    lens = torch.from_numpy(rng.randint(T + 1, 2 * T + 1, size=32)).cuda()
-
-    def sample():
-        return preprocess.device_sample_clips(raw, T, method="sad", lengths=lens)
-
-    with torch.inference_mode():
-        x = sample()
-        feats = model(x, features_only=True)
-        step_ms = _events_ms(torch, lambda: model(sample()), iters=10)
-        sample_ms = _events_ms(torch, sample, iters=10)
-        forward_ms = _events_ms(torch, lambda: model(x), iters=10)
-        backbone_ms = _events_ms(torch, lambda: model(x, features_only=True), iters=10)
-        head_ms = _events_ms(torch, lambda: model(feats, from_features=True), iters=10)
-    serving = {
-        "serving_clips_per_s": 32 * 1e3 / step_ms, "batch": 32, "raw_len": 2 * T, "T": T,
-        "ms_per_batch": step_ms, "sampling_ms": sample_ms, "forward_ms": forward_ms,
-        "backbone_ms": backbone_ms, "head_ms": head_ms, "gpu": gpu,
-    }
-    print(json.dumps(serving))
-
-    # --- kernel path vs the same path with the plain versions ------------
-    torch.backends.cudnn.deterministic = True  # same conv algorithms on both paths
-    with torch.inference_mode():
-        idx_k = preprocess.sample_indices(raw, T, "sad", lens)
-        logits_k = model(sample())
-        _set_scan_impl(model, "scan")
-        with mock.patch.object(preprocess, "pair_scores", pair_scores_ref):
-            idx_p = preprocess.sample_indices(raw, T, "sad", lens)
-            logits_p = model(sample())
-        _set_scan_impl(model, "pallas")
-    if not torch.equal(idx_k, idx_p):
-        raise AssertionError("kernel and plain SAD selection picked different frames")
-    torch.testing.assert_close(logits_k, logits_p, atol=1e-4, rtol=1e-4)
-    path_err = (logits_k - logits_p).abs().max().item()
-    print(f"kernel path == plain path: frame indices equal, logits max abs err {path_err}")
-
-    # --- the card against the CPU, f32, same seed -------------------------
-    cfg32 = ModelConfig(**deployed)
-    with torch.inference_mode():
-        on_card = build_model(cfg32, T, seed=0)(sample()[:2]).cpu()
-        x_cpu = preprocess.device_sample_clips(raw[:2].cpu(), T, method="sad", lengths=lens[:2].cpu())
-        on_cpu = build_model(cfg32, T, device="cpu", seed=0)(x_cpu)
-    torch.testing.assert_close(on_card, on_cpu, atol=1e-3, rtol=1e-3)
-    print(f"f32 card vs CPU logits max abs err {(on_card - on_cpu).abs().max().item()}")
+    _check_served(results, names)
+    _bench_and_hold(torch, model, ModelConfig(**deployed), T, gpu, "deployed_mamba", seed=1)
     return launches
 
 
+def _recurrent_path(torch, gpu):
+    """Four LSTM/GRU heads at the UCF50 geometry, one request each."""
+    from vct_torch.core.config import ModelConfig
+    from vct_torch.models import build_model
+    from vct_torch.ops import lstm as rnn_ops
+    from vct_torch.ops.pair_scores import pair_scores
+    from vct_torch.serve.deployment import classify_and_display, sample_decoded_clips
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = {"pair_scores": pair_scores,
+                **{n: getattr(rnn_ops, n) for n in RNN_KERNELS}}
+    lengths = [30, 75, 121, 200]
+    videos = _synthetic_videos(lengths, seed=2)
+    names = [f"@user{i}_video_{2000 + i}.mp4" for i in range(len(videos))]
+    totals = dict.fromkeys(counters, 0)
+    for rnn_type, bidirectional in (("lstm", False), ("gru", False), ("lstm", True), ("gru", True)):
+        cfg = ModelConfig(**UCF50, rnn_type=rnn_type, bidirectional=bidirectional,
+                          compute_dtype="bfloat16")
+        model = build_model(cfg, T_UCF50, seed=0)
+        for fn in counters.values():
+            fn.launches = 0
+        clips = sample_decoded_clips(videos, "sad", T_UCF50)
+        results = classify_and_display(model, clips, names,
+                                       [f"class_{i}" for i in range(cfg.num_classes)], batch_size=4)
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in counters.items()}
+        want = dict.fromkeys(counters, 0)
+        want["pair_scores"] = sum(n > T_UCF50 for n in lengths)
+        if bidirectional:  # K5 per layer and direction
+            want[f"{rnn_type}_scan"] = 2 * cfg.rnn_layer
+        else:  # the whole stack in one K2 launch
+            want[f"{rnn_type}_stack"] = 1
+        head = f"{rnn_type} {'bidir' if bidirectional else 'uni'}"
+        print(f"{head} path launches {launches} (expected {want})")
+        if launches != want:
+            raise AssertionError(f"{head}: kernel launches {launches} != expected {want}")
+        _check_served(results, names)
+        totals = {n: totals[n] + launches[n] for n in totals}
+        del model
+    model = build_model(ModelConfig(**UCF50, rnn_type="lstm", compute_dtype="bfloat16"),
+                        T_UCF50, seed=0)
+    _bench_and_hold(torch, model, ModelConfig(**UCF50, rnn_type="lstm"), T_UCF50, gpu,
+                    "ucf50_lstm", seed=3)
+    return totals
+
+
+def _rnn_timing(torch, gen, ops, cell, kind, B, T_, Hd, L, in_size=512):
+    """Time one K2/K5 entry point against its plain version and cuDNN's
+    ``nn.LSTM`` / ``nn.GRU`` forward on the same function: layer 0's input
+    projection from x (B, T, in_size) included in the library call only."""
+    n_gates = 4 if cell == "lstm" else 3
+    GH, k = n_gates * Hd, Hd ** -0.5
+    L = L if kind == "stack" else 1
+    _, w_hh, b_hh, w_ih, b_ih = _rnn_inputs(torch, gen, n_gates, B, T_, Hd, max(L, 2))
+    w_hh, b_hh, w_ih, b_ih = w_hh[:L], b_hh[:L], w_ih[:L - 1], b_ih[:L - 1]
+    x = torch.randn(B, T_, in_size, generator=gen).cuda()
+    w_ih0 = ((torch.rand(in_size, GH, generator=gen) * 2 - 1) * k).cuda()
+    b_ih0 = ((torch.rand(GH, generator=gen) * 2 - 1) * k).cuda()
+    xp = x @ w_ih0 + b_ih0
+    if kind == "stack":
+        op = getattr(ops, f"{cell}_stack")
+        args = (xp, w_hh, b_hh, w_ih, b_ih)
+        plain = ops.stack_ref
+    else:
+        op = getattr(ops, f"{cell}_scan")
+        args = (xp, w_hh[0], b_hh[0])
+        plain = getattr(ops, f"{cell}_scan_ref")
+    lib = (torch.nn.LSTM if cell == "lstm" else torch.nn.GRU)(
+        in_size, Hd, num_layers=L, batch_first=True).cuda()
+    with torch.no_grad():
+        for l in range(L):
+            getattr(lib, f"weight_ih_l{l}").copy_((w_ih0 if l == 0 else w_ih[l - 1]).t())
+            getattr(lib, f"bias_ih_l{l}").copy_(b_ih0 if l == 0 else b_ih[l - 1])
+            getattr(lib, f"weight_hh_l{l}").copy_(w_hh[l].t())
+            getattr(lib, f"bias_hh_l{l}").copy_(b_hh[l])
+    n_w = (2 * L - 1) if kind == "stack" else 1  # H x GH matrices the kernel applies
+    bound, by = _bound_ms(4 * (B * T_ * GH + B * T_ * Hd + n_w * (Hd + 1) * GH),
+                          2 * B * T_ * n_w * Hd * GH)
+    with torch.inference_mode():
+        lib_diff = (lib(x)[0] - op(*args)).abs().max().item()
+        return {
+            "shape": [B, T_, Hd, L],
+            "ms": _events_ms(torch, lambda: op(*args), 20),
+            "device_ms": _graph_ms(torch, lambda: op(*args), 20),
+            "plain_ms": _events_ms(torch, lambda: plain(*args), 3, warmup=1),
+            "library_ms": _events_ms(torch, lambda: lib(x), 20),
+            "library_max_abs_diff": lib_diff,
+            "bound_ms": bound, "bound_by": by,
+        }
+
+
 def _kernel_timings(torch, gen, launches, errs, gpu):
+    from vct_torch.ops import lstm as rnn_ops
     from vct_torch.ops.pair_scores import pair_scores, pair_scores_ref
     from vct_torch.ops.selective_scan import selective_scan, selective_scan_ref
 
@@ -313,10 +494,23 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
          "bound_by": t3["bound_by"], "library_ms": None,
          "device_ms": t3["device_ms"], "shape": t3["shape"]},
     ]
+    for name in RNN_KERNELS:
+        cell, kind = name.split("_")
+        t = _rnn_timing(torch, gen, rnn_ops, cell, kind, 32, T_UCF50, 56, 4)
+        kernels.append({
+            "name": name, "route": "cuda", "source": "vct_torch/csrc/lstm.cu",
+            "replaces": RNN_KERNELS[name], "launches": launches[name], "max_abs_err": errs[name],
+            **{key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                       "device_ms", "library_max_abs_diff", "shape")},
+        })
     extra = {"extra_timings": {
         "pair_scores_B1_L120_sad": k1(1, 2 * T),
         "pair_scores_B32_L120_flow": k1(32, 2 * T, "flow"),
         "selective_scan_D2048_N16": k3(2, 256, 2048, 16),
+        "lstm_stack_B4_served": _rnn_timing(torch, gen, rnn_ops, "lstm", "stack", 4, T_UCF50, 56, 4),
+        "gru_stack_B4_served": _rnn_timing(torch, gen, rnn_ops, "gru", "stack", 4, T_UCF50, 56, 4),
+        "lstm_stack_H256_L2": _rnn_timing(torch, gen, rnn_ops, "lstm", "stack", 2, 16, 256, 2,
+                                          in_size=256),
     }, "gpu": gpu}
     print(json.dumps(extra))
     return kernels
@@ -346,8 +540,12 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(0)
     errs = {"pair_scores": _check_pair_scores(torch, gen),
-            "selective_scan": _check_selective_scan(torch, gen)}
-    launches = _main_path(torch, gpu)
+            "selective_scan": _check_selective_scan(torch, gen),
+            **_check_rnn(torch, gen)}
+    launches = _main_path(torch, gpu)  # K1, K3: the Mamba path's counts
+    rnn_launches = _recurrent_path(torch, gpu)
+    print(f"LSTM/GRU path launches over the four heads {rnn_launches}")
+    launches.update({n: rnn_launches[n] for n in RNN_KERNELS})
     kernels = _kernel_timings(torch, gen, launches, errs, gpu)
     print(json.dumps({"kernels": kernels, "gpu": gpu}))
     print(_gpu_line())  # name, power limit: exactly as nvidia-smi prints them

@@ -7,8 +7,9 @@ the root conftest (it exists for JAX's CPU re-exec):
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 
 Tolerances: SAD and flow exact (both sides sum exactly in integers); the
-scan atol = rtol = 1e-5 (f32, summation order and fused multiply-adds);
-logits atol = rtol = 1e-4 with TF32 off.
+selective scan and the LSTM/GRU recurrences atol = rtol = 1e-5 (f32,
+summation order and fused multiply-adds); logits atol = rtol = 1e-4 with
+TF32 off.
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 from vct_torch.core.config import ModelConfig
 from vct_torch.data import preprocess
 from vct_torch.models import build_model
+from vct_torch.ops import lstm as rnn_ops
 from vct_torch.ops.pair_scores import pair_scores, pair_scores_ref
 from vct_torch.ops.selective_scan import selective_scan, selective_scan_ref
 from vct_torch.serve.deployment import classify_videos, sample_decoded_clips
@@ -66,6 +68,44 @@ def test_selective_scan_kernel_matches_plain(cuda_device, dims, reverse):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
+def _rnn_args(n_gates, B, T, H, L, device, seed=0):
+    """Gate inputs and weights drawn like the model's: U(-1/sqrt(H), 1/sqrt(H))."""
+    rng = np.random.RandomState(seed)
+    k, GH = H ** -0.5, n_gates * H
+    shapes = [(L, H, GH), (L, GH), (L - 1, H, GH), (L - 1, GH)]
+    args = [rng.randn(B, T, GH)] + [rng.uniform(-k, k, s) for s in shapes]
+    return [torch.tensor(a, dtype=torch.float32, device=device) for a in args]
+
+
+@pytest.mark.parametrize("dims", [(4, 40, 56, 4), (3, 7, 5, 3)], ids=["served", "oddH"])
+@pytest.mark.parametrize("name", ["lstm_scan", "gru_scan", "lstm_stack", "gru_stack"])
+def test_rnn_kernel_matches_plain(cuda_device, name, dims):
+    op = getattr(rnn_ops, name)
+    n_gates = 4 if name.startswith("lstm") else 3
+    xp, w_hh, b_hh, w_ih, b_ih = _rnn_args(n_gates, *dims, cuda_device)
+    before = op.launches
+    if name.endswith("stack"):
+        got, want = op(xp, w_hh, b_hh, w_ih, b_ih), rnn_ops.stack_ref(xp, w_hh, b_hh, w_ih, b_ih)
+    else:
+        ref = rnn_ops.lstm_scan_ref if n_gates == 4 else rnn_ops.gru_scan_ref
+        got, want = op(xp, w_hh[0], b_hh[0]), ref(xp, w_hh[0], b_hh[0])
+    torch.cuda.synchronize()
+    assert op.launches == before + 1
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dims", [(2, 16, 96, 2), (1, 128, 512, 2)], ids=["W_ih_in_L2", "seq_in_L2"])
+@pytest.mark.parametrize("name", ["lstm_stack", "gru_stack"])
+def test_rnn_stack_kernel_reads_through_l2(cuda_device, name, dims):
+    """Shapes whose weights, then also the previous layer's outputs, do not
+    fit shared memory next to W_hh and are read through L2."""
+    op = getattr(rnn_ops, name)
+    args = _rnn_args(4 if name == "lstm_stack" else 3, *dims, cuda_device)
+    got, want = op(*args), rnn_ops.stack_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
 def test_kernel_wrappers_refuse_what_they_cannot_take(cuda_device):
     x = torch.from_numpy(_clips((2, 5, 8, 8, 3))).to(cuda_device)
     with pytest.raises(TypeError):
@@ -78,6 +118,13 @@ def test_kernel_wrappers_refuse_what_they_cannot_take(cuda_device):
     ]
     with pytest.raises(ValueError, match="N="):
         selective_scan(*args)
+    xp, w_hh, b_hh, w_ih, b_ih = _rnn_args(4, 2, 3, 8, 2, cuda_device)
+    with pytest.raises(TypeError):
+        rnn_ops.lstm_scan(xp.double(), w_hh[0].double(), b_hh[0].double())
+    with pytest.raises(ValueError, match="contiguous"):
+        rnn_ops.lstm_stack(xp.transpose(0, 1).contiguous().transpose(0, 1), w_hh, b_hh, w_ih, b_ih)
+    with pytest.raises(ValueError, match="is on"):
+        rnn_ops.lstm_stack(xp, w_hh.cpu(), b_hh, w_ih, b_ih)
 
 
 def test_small_serving_path_goes_through_the_kernels(cuda_device):
@@ -99,3 +146,30 @@ def test_small_serving_path_goes_through_the_kernels(cuda_device):
     idx_cpu = preprocess.sample_indices(torch.from_numpy(_clips((2, 12, 16, 16, 3))), T, "sad")
     idx_gpu = preprocess.sample_indices(torch.from_numpy(_clips((2, 12, 16, 16, 3))).to(cuda_device), T, "sad")
     assert torch.equal(idx_cpu, idx_gpu.cpu())
+
+
+@pytest.mark.parametrize("rnn_type,bidirectional", [("lstm", False), ("gru", True)])
+def test_recurrent_serving_path_goes_through_the_kernels(cuda_device, rnn_type, bidirectional):
+    T, layers = 4, 2
+    cfg = ModelConfig(num_classes=3, cnn_backbone="resnet18", rnn_type=rnn_type,
+                      rnn_input_size=8, hidden_size=6, rnn_layer=layers,
+                      bidirectional=bidirectional, scan_impl="pallas")
+    model = build_model(cfg, T, seed=0)
+    videos = [_clips((n, 16, 16, 3), seed=n) for n in (3, 7, 12)]
+    ops = [rnn_ops.lstm_scan, rnn_ops.gru_scan, rnn_ops.lstm_stack, rnn_ops.gru_stack]
+    for op in ops:
+        op.launches = 0
+    clips = sample_decoded_clips(videos, "sad", T)
+    probs = classify_videos(model, clips, batch_size=2)  # two forwards
+    launches = {op.__name__: op.launches for op in ops}
+    want = dict.fromkeys(launches, 0)
+    if bidirectional:
+        want[f"{rnn_type}_scan"] = 2 * 2 * layers  # forwards x directions x layers
+    else:
+        want[f"{rnn_type}_stack"] = 2  # one per forward
+    assert launches == want
+    assert probs.shape == (3, 3) and np.isfinite(probs).all()
+    with torch.inference_mode():
+        want_logits = model.to("cpu")(clips.cpu())
+        got = model.to(cuda_device)(clips)
+    torch.testing.assert_close(got.cpu(), want_logits, atol=1e-4, rtol=1e-4)

@@ -219,12 +219,6 @@ def test_model_config_defaults_match_vct():
     assert ours == {k: theirs[k] for k in ours}
 
 
-@pytest.mark.parametrize("rnn_type", ["lstm", "gru"])
-def test_recurrent_heads_are_not_ported_yet(rnn_type):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(config.ModelConfig(cnn_backbone="resnet18", rnn_type=rnn_type), 4, device="cpu")
-
-
 def test_unknown_backbone_and_family_raise_keyerror():
     with pytest.raises(KeyError, match="resnet50"):
         build_backbone("mobilenet_v2")

@@ -6,10 +6,11 @@ framework-free ``vct`` modules it keeps as its own copies. Its hand-written
 CUDA kernels live in ``vct_torch/csrc`` and are built on first CUDA use
 (``vct_torch.ops._build``).
 
-This slice covers the deployed serving path: on-device SAD/flow frame
-selection (kernel ``pair_scores``), the LRCN classifier with a ResNet backbone
-and a Mamba head (kernel ``selective_scan``), and the batched softmax serving
-entry points in ``vct_torch.serve.deployment``.
+It covers the serving path: on-device SAD/flow frame selection (kernel
+``pair_scores``), the LRCN classifier with a ResNet backbone and a Mamba head
+(kernel ``selective_scan``) or an LSTM/GRU head (kernels ``lstm_stack`` /
+``gru_stack`` and ``lstm_scan`` / ``gru_scan``), and the batched softmax
+serving entry points in ``vct_torch.serve.deployment``.
 """
 
 from vct_torch.device import resolve_device

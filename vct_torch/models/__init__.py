@@ -11,6 +11,7 @@ from vct_torch.core.registry import Registry
 from vct_torch.device import resolve_device
 from vct_torch.models.layers import RMSNorm
 from vct_torch.models.lrcn import LRCN, build_lrcn
+from vct_torch.models.recurrent import GRU, LSTM
 from vct_torch.models.ssm import ParallelMamba
 
 __all__ = ["LRCN", "MODEL_FAMILIES", "build_lrcn", "build_model", "init_weights"]
@@ -28,9 +29,10 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Fill every parameter and buffer from a seeded CPU generator.
 
     The scheme follows the reference's initializers: LeCun-normal conv and
-    linear weights, zero biases, unit norms, BN statistics (0, 1), and
-    standard-normal ``A_log`` / ``D``. The same seed gives the same weights
-    on any device.
+    linear weights, zero biases, unit norms, BN statistics (0, 1),
+    standard-normal ``A_log`` / ``D``, and LSTM/GRU weights and biases
+    U(-1/sqrt(H), 1/sqrt(H)). The same seed gives the same weights on any
+    device.
     """
     gen = torch.Generator(device="cpu").manual_seed(seed)
     values = {}
@@ -55,6 +57,10 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
         elif isinstance(mod, ParallelMamba):
             values[id(mod.A_log)] = _normal(mod.A_log.shape, 1.0, gen)
             values[id(mod.D)] = _normal(mod.D.shape, 1.0, gen)
+        elif isinstance(mod, (LSTM, GRU)):
+            k = mod.hidden_size ** -0.5
+            for p in mod.parameters(recurse=False):
+                values[id(p)] = torch.rand(p.shape, generator=gen) * (2 * k) - k
     tensors = list(model.parameters()) + list(model.buffers())
     missing = [t for t in tensors if id(t) not in values]
     if missing:

@@ -1,10 +1,10 @@
-"""LRCN — frozen CNN backbone + adapter MLP + Mamba temporal head.
+"""LRCN — frozen CNN backbone + adapter MLP + {LSTM, GRU, Mamba} temporal head.
 
 Port of ``vct/models/lrcn.py``:
 
     (B, T, H, W, 3) ──flatten B·T──► backbone ──► (B, T, F)
       ──► adapter (canonical 3-stage or Adapt DSL)
-      ──► Mamba residual blocks
+      ──► rnn_type ∈ {lstm, gru} stack  |  Mamba residual blocks
       ──► rnn_out "all" (flatten T·D) | "last" ([:, -1])
       ──► multiclass MLP head | per-class binary head
 
@@ -12,7 +12,8 @@ The backbone sees the flattened frames as an NCHW view in channels-last
 memory (no copy). With ``compute_dtype="bfloat16"`` it runs under bf16
 autocast and its features come back as f32, so the head always runs in f32
 (the reference's promotion of bf16 features against f32 parameters). The
-LSTM/GRU heads are not ported yet (ROADMAP Queue 1, next slice).
+LSTM/GRU head runs the CUDA recurrences with ``scan_impl="pallas"`` and the
+plain loops otherwise, as ``vct`` maps it.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from torch import nn
 from vct_torch.core.config import ModelConfig
 from vct_torch.models.backbones import build_backbone
 from vct_torch.models.layers import AdaptDSL, CanonicalAdapter, MultiBinaryHead, MulticlassHead
+from vct_torch.models.recurrent import RNNStack
 from vct_torch.models.ssm import MambaResidualBlock
 
 __all__ = ["LRCN", "build_lrcn"]
@@ -47,33 +49,37 @@ class LRCN(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        if rnn_type != "mamba":
-            raise NotImplementedError(
-                f"rnn_type={rnn_type!r}: the LSTM/GRU heads are not ported to "
-                "vct_torch yet (ROADMAP Queue 1, the next slice)"
-            )
         if rnn_out not in ("all", "last"):
             raise ValueError(f"rnn_out must be 'all' or 'last', got {rnn_out!r}")
         self.rnn_out = rnn_out
+        self.rnn_type = rnn_type
         self.dtype = dtype
         self.cnn_backbone, feat = build_backbone(cnn_backbone)
         if adapt_mode:
             self.adapt = AdaptDSL(feat, rnn_input_size, mode=adapt_mode, dropout=dropout)
         else:
             self.adapt = CanonicalAdapter(feat, rnn_input_size, dropout=dropout)
-        # Block i: ResidualBlock(rnn_input, 2*rnn_input, n_state=hidden,
-        # dt_rank=hidden), named mamba_{i} as in the reference.
-        self.blocks = [f"mamba_{i}" for i in range(rnn_layer)]
-        for name in self.blocks:
-            self.add_module(name, MambaResidualBlock(
-                d_model=rnn_input_size,
-                d_inner=rnn_input_size * 2,
-                n_state=hidden_size,
-                dt_rank=hidden_size,
-                bidirectional=bidirectional,
-                scan_impl=scan_impl,
-            ))
-        pooled = rnn_input_size * (sequence_length if rnn_out == "all" else 1)
+        if rnn_type == "mamba":
+            # Block i: ResidualBlock(rnn_input, 2*rnn_input, n_state=hidden,
+            # dt_rank=hidden), named mamba_{i} as in the reference.
+            self.blocks = [f"mamba_{i}" for i in range(rnn_layer)]
+            for name in self.blocks:
+                self.add_module(name, MambaResidualBlock(
+                    d_model=rnn_input_size,
+                    d_inner=rnn_input_size * 2,
+                    n_state=hidden_size,
+                    dt_rank=hidden_size,
+                    bidirectional=bidirectional,
+                    scan_impl=scan_impl,
+                ))
+            width = rnn_input_size
+        else:
+            self.rnn = RNNStack(
+                rnn_type, rnn_input_size, hidden_size, rnn_layer, bidirectional=bidirectional,
+                scan_impl="pallas" if scan_impl == "pallas" else "scan",
+            )
+            width = hidden_size * (2 if bidirectional else 1)
+        pooled = width * (sequence_length if rnn_out == "all" else 1)
         if classif_mode == "multiclass":
             self.head = MulticlassHead(pooled, num_classes, dropout=dropout)
         else:
@@ -100,8 +106,11 @@ class LRCN(nn.Module):
 
     def _head(self, feats):
         h = self.adapt(feats.to(torch.float32))
-        for name in self.blocks:
-            h = getattr(self, name)(h)
+        if self.rnn_type == "mamba":
+            for name in self.blocks:
+                h = getattr(self, name)(h)
+        else:
+            h = self.rnn(h)
         pooled = h.reshape(h.shape[0], -1) if self.rnn_out == "all" else h[:, -1, :]
         return self.head(pooled)
 

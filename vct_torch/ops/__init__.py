@@ -2,6 +2,9 @@
 
 * ``pair_scores`` (K1) — SAD / flow pair scores, ``csrc/pair_scores.cu``
 * ``selective_scan`` (K3) — Mamba scan forward, ``csrc/selective_scan.cu``
+* ``lstm`` — LSTM/GRU recurrences, ``csrc/lstm.cu``: ``lstm_stack`` /
+  ``gru_stack`` (K2, a whole unidirectional stack) and ``lstm_scan`` /
+  ``gru_scan`` (K5, one layer)
 
 Every wrapper takes a CPU tensor to its plain PyTorch version and a CUDA
 tensor to its kernel, and counts its kernel launches in ``<wrapper>.launches``.

@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "build_dir", "check", "load_kernels"]
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / ".vct_torch_build"
-SOURCES = ("common.cu", "pair_scores.cu", "selective_scan.cu")
+SOURCES = ("common.cu", "pair_scores.cu", "selective_scan.cu", "lstm.cu")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -98,6 +98,8 @@ def _declare(lib) -> None:
     lib.vct_pair_scores.restype = i
     lib.vct_selective_scan_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.vct_selective_scan_fwd.restype = i
+    lib.vct_rnn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.vct_rnn_fwd.restype = i
     lib.vct_error_string.argtypes = [i]
     lib.vct_error_string.restype = ctypes.c_char_p
 

@@ -1,13 +1,14 @@
-"""Profile bench-shaped serving steps of the deployed config on the card.
+"""Profile bench-shaped serving steps on the card.
 
-    python3 -m vct_torch.tools.profile_serving [--steps 3]
+    python3 -m vct_torch.tools.profile_serving [--steps 3] [--config deployed_mamba|ucf50_lstm]
 
 One step is what ``chip_smoke.py`` times as clips/s: SAD frame selection of
-a (32, 120, 80, 80, 3) uint8 batch with ragged lengths, then the forward of
-the deployed LRCN (resnet50 in bf16, 3 Mamba blocks, T=60) with seeded
-weights. Prints the top kernels by device time, the device time grouped by
-kind, and the device busy share of the profiled window, as JSON lines.
-Needs an NVIDIA GPU.
+a (32, 2T, 80, 80, 3) uint8 batch with ragged lengths, then the forward of
+the LRCN with seeded weights: the deployed config (resnet50 in bf16, 3
+Mamba blocks, T=60) or the UCF50 one (resnet50 in bf16, rnn_input 512, 4
+LSTM layers of H=56, T=40, scan_impl "pallas"). Prints the top kernels by
+device time, the device time grouped by kind, and the device busy share of
+the profiled window, as JSON lines. Needs an NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -24,10 +25,18 @@ from vct_torch.core.config import ModelConfig
 from vct_torch.data.preprocess import device_sample_clips
 from vct_torch.models import build_model
 
+# Config name -> (sequence length, ModelConfig fields).
+CONFIGS = {
+    "deployed_mamba": (60, dict(scan_impl="pallas")),
+    "ucf50_lstm": (40, dict(rnn_type="lstm", rnn_input_size=512, hidden_size=56,
+                            rnn_layer=4, scan_impl="pallas")),
+}
+
 # Kernel-name fragments -> group, first match wins.
 _GROUPS = (
     ("pair_scores (K1)", ("pair_scores_kernel",)),
     ("selective_scan (K3)", ("selective_scan_fwd_kernel",)),
+    ("lstm / gru (K2, K5)", ("rnn_stack_kernel",)),
     ("conv / gemm", ("conv", "xmma", "gemm", "cutlass", "implicit", "sm90_")),
     ("batch_norm", ("batch_norm", "bn_fw", "batchnorm")),
     ("sort / top-k", ("sort", "radix", "topk")),
@@ -53,6 +62,7 @@ def _self_device_us(evt) -> float:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--config", choices=sorted(CONFIGS), default="deployed_mamba")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serving needs an NVIDIA GPU", file=sys.stderr)
@@ -61,8 +71,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    T = 60
-    model = build_model(ModelConfig(scan_impl="pallas", compute_dtype="bfloat16"), T, seed=0)
+    T, fields = CONFIGS[args.config]
+    model = build_model(ModelConfig(**fields, compute_dtype="bfloat16"), T, seed=0)
     rng = np.random.RandomState(1)
     raw = torch.from_numpy(rng.randint(0, 256, (32, 2 * T, 80, 80, 3), dtype=np.uint8)).cuda()
     lens = torch.from_numpy(rng.randint(T + 1, 2 * T + 1, size=32)).cuda()
@@ -99,7 +109,7 @@ def main(argv=None) -> int:
         for n, us, c in top
     ]}))
     print(json.dumps({
-        "steps": args.steps, "gpu": gpu,
+        "config": args.config, "steps": args.steps, "gpu": gpu,
         "window_ms_per_step": window_us / 1e3 / args.steps,
         "device_ms_per_step": total_us / 1e3 / args.steps,
         "device_busy_share": total_us / window_us if window_us else None,
