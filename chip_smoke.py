@@ -13,16 +13,25 @@ line):
 2. build — nvcc builds the kernels of ``vct_torch/csrc`` (timed);
 3. K1 ``pair_scores`` against ``pair_scores_ref`` on the card: SAD
    bit-exact, flow rtol 1e-6 (both sum exactly in integers);
-4. K3 ``selective_scan`` against ``selective_scan_ref`` on the card:
+4. K4 ``ssim_pair_scores`` against ``ssim_pair_scores_ref`` on the card:
+   atol 2e-6 (vct's tolerance; expected bit-equal: the window sums are
+   exact, the f32 operations unfused and in the same order, the mean summed
+   in f64), at the bench shape, both served buckets, L=2, the kernel-audit
+   geometries, the smallest 3x3 frame, an unaligned view and all-equal
+   frames, which must score exactly 1.0;
+5. K6 ``normalize_frames`` against ``normalize_frames_ref``: bit-exact, for
+   the identity and an ImageNet mean/std, at (32, 60, 80, 80, 3), an odd
+   element count, an unaligned view and C=1;
+6. K3 ``selective_scan`` against ``selective_scan_ref`` on the card:
    atol = rtol = 1e-5 (f32, summation order and fused multiply-adds);
-5. K2 ``lstm_stack`` / ``gru_stack`` and K5 ``lstm_scan`` / ``gru_scan``
+7. K2 ``lstm_stack`` / ``gru_stack`` and K5 ``lstm_scan`` / ``gru_scan``
    against their plain versions on the card, TF32 off, atol = rtol = 1e-5:
    the bench stack (B=32, T=40, H=56, L=4), a served request (B=4), the
    kernel's shared-memory plans (H=96 LSTM: W_hh staged, W_ih read through L2;
    H=256: both weights through L2; H=512, T=128: the previous layer's
    outputs through L2 too), an odd H=5, T=1, and K5 forward and through
    the time flip;
-6. the Mamba path — the deployed config (resnet50 bf16 backbone, 3 Mamba
+8. the Mamba path — the deployed config (resnet50 bf16 backbone, 3 Mamba
    blocks, rnn_input 8, T=60, 80x80, scan_impl "pallas") with seeded
    weights serves three requests of four decoded videos each through
    ``sample_decoded_clips`` and ``classify_and_display``, with the kernels'
@@ -32,7 +41,13 @@ line):
    frame indices, logits atol = rtol = 1e-4, TF32 off), and an f32 copy
    of the model on the card is held against the same model on the CPU
    (logits atol = rtol = 1e-3);
-7. the LSTM/GRU path — the UCF50 geometry (resnet50 bf16, rnn_input 512,
+9. the SSIM path — the same deployed model serves three requests of four
+   decoded videos with ``ssim`` (one request names ``ssim_most_unique``)
+   selection, launch counts read around exactly that run (K4 once per video
+   longer than T, K1 never, K3 three times per request), and its
+   bench-shaped step is timed and held the same way under the label
+   ``deployed_mamba_ssim``;
+10. the LSTM/GRU path — the UCF50 geometry (resnet50 bf16, rnn_input 512,
    H=56, 4 layers, T=40, 80x80, scan_impl "pallas") serves one request of
    four videos for each of four heads (LSTM and GRU, uni- and
    bidirectional), with the launch counts read around each: one K2 launch
@@ -40,10 +55,10 @@ line):
    for the LSTM uni head a bench-shaped batch (B=32, L=80, ragged lengths)
    is timed as clips/s, held against the plain path (equal frame indices,
    logits atol = rtol = 1e-4) and against the CPU in f32 (1e-3);
-8. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
-   launches, error, time, plain time, bound and, for K2/K5, cuDNN's
-   ``nn.LSTM`` / ``nn.GRU`` time, and a line of extra timings at the other
-   shapes.
+11. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
+    launches, error, time, plain time, bound and, for K2/K5, cuDNN's
+    ``nn.LSTM`` / ``nn.GRU`` time, and a line of extra timings at the other
+    shapes. K6 is on no serving path (as in vct): its launches are 0.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -65,6 +80,12 @@ HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 
 T, H, W = 60, 80, 80
+
+# The deployed config (bench.py VCT_BENCH_MODEL=mamba), with the kernels' scan_impl.
+DEPLOYED = dict(cnn_backbone="resnet50", rnn_type="mamba", rnn_input_size=8, rnn_layer=3,
+                scan_impl="pallas")
+# ALU operations per valid output element of K4, as counted in vct_torch/csrc/ssim.cu.
+SSIM_OPS_PER_ELEMENT = 56
 
 # The UCF50 geometry bench.py times by default, with the kernels' scan_impl.
 T_UCF50 = 40
@@ -153,6 +174,67 @@ def _check_pair_scores(torch, gen):
             if got.numel():
                 err = max(err, (got - want).abs().max().item())
     print(f"K1 pair_scores: {len(cases)} shapes x (sad, flow) agree; max abs err {err}")
+    return err
+
+
+def _check_ssim(torch, gen):
+    from vct_torch.ops.ssim import ssim_pair_scores, ssim_pair_scores_ref
+
+    shapes = [
+        (32, 120, H, W, 3),  # bench-like batch (L = 2T)
+        (1, 120, H, W, 3),   # one bucket-padded video, both buckets the
+        (1, 240, H, W, 3),   # served requests below use
+        (4, 2, H, W, 3),     # L = 2
+        (2, 12, 16, 16, 3),  # the kernel-audit geometries: odd H, C=1,
+        (1, 9, 11, 44, 3),   # L crossing a chunk boundary
+        (2, 10, 8, 48, 3),
+        (1, 7, 9, 86, 3),
+        (2, 21, 16, 48, 1),
+        (3, 5, 3, 3, 3),     # the smallest frame
+        (3, 13, 7, 5, 1),    # odd H*W*C
+    ]
+    cases = [(s, torch.randint(0, 256, s, dtype=torch.uint8, generator=gen).cuda()) for s in shapes]
+    flat = torch.randint(0, 256, (1 + 2 * 10 * 8 * 8 * 3,), dtype=torch.uint8, generator=gen).cuda()
+    cases.append(("unaligned 2x10x8x8x3", flat[1:].view(2, 10, 8, 8, 3)))
+    frame = torch.randint(0, 256, (1, 1, H, W, 3), dtype=torch.uint8, generator=gen).cuda()
+    static = frame.expand(4, 30, H, W, 3).contiguous()
+    cases.append(("all-equal 4x30x80x80x3", static))
+    err, equal = 0.0, 0
+    for name, x in cases:
+        got, want = ssim_pair_scores(x), ssim_pair_scores_ref(x)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=2e-6, rtol=0, msg=f"ssim_pair_scores {name}")
+        err = max(err, (got - want).abs().max().item())
+        equal += int(torch.equal(got, want))
+    if not torch.equal(ssim_pair_scores(static), torch.ones((4, 29), device=static.device)):
+        raise AssertionError("ssim_pair_scores: all-equal frames do not score exactly 1.0")
+    print(f"K4 ssim_pair_scores: {len(cases)} shapes agree within 2e-6, bit-equal in {equal}; "
+          f"all-equal frames score exactly 1.0; max abs err {err}")
+    return err
+
+
+IMAGENET_MEAN, IMAGENET_STD = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+
+
+def _check_normalize(torch, gen):
+    from vct_torch.ops.preprocess import normalize_frames, normalize_frames_ref
+
+    shapes = [(32, T, H, W, 3), (3, 7, 5, 3), (2, 5, 9, 1)]  # the bench clips, odd size, C=1
+    cases = [(s, torch.randint(0, 256, s, dtype=torch.uint8, generator=gen).cuda()) for s in shapes]
+    flat = torch.randint(0, 256, (1 + 4 * 8 * 8 * 3,), dtype=torch.uint8, generator=gen).cuda()
+    cases.append(("unaligned 4x8x8x3", flat[1:].view(4, 8, 8, 3)))
+    err = 0.0
+    for name, x in cases:
+        C = x.shape[-1]
+        for mean, std in ((None, None), (IMAGENET_MEAN[:C], IMAGENET_STD[:C])):
+            got, want = normalize_frames(x, mean, std), normalize_frames_ref(x, mean, std)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"normalize_frames {name} mean={mean}: not bit-exact, max abs "
+                                     f"err {(got - want).abs().max().item()}")
+            err = max(err, (got - want).abs().max().item())
+    print(f"K6 normalize_frames: {len(cases)} shapes x (identity, ImageNet) bit-exact; "
+          f"max abs err {err}")
     return err
 
 
@@ -266,20 +348,43 @@ def _check_served(results, names):
             raise AssertionError(f"bad probabilities for {r['video_name']}: {scores}")
 
 
-def _bench_and_hold(torch, model, cfg32, seq_len, gpu, label, seed):
-    """Time a bench-shaped step (B=32, raw L=2T, ragged lengths, SAD
+def _selection_gaps(torch, preprocess, raw, lens, seq_len, method, rows):
+    """Print, for each clip in ``rows``, the score gap at the selection
+    boundary under the kernel and under the plain scorer."""
+    from vct_torch.ops.pair_scores import pair_scores_ref
+    from vct_torch.ops.ssim import ssim_pair_scores_ref
+
+    if method == "ssim":
+        scorers = {"kernel": lambda r: 1.0 - preprocess.ssim_pair_scores(r),
+                   "plain": lambda r: 1.0 - ssim_pair_scores_ref(r)}
+    else:
+        scorers = {"kernel": lambda r: preprocess.pair_scores(r, method),
+                   "plain": lambda r: pair_scores_ref(r, method)}
+    k = seq_len - 1 if method == "ssim" else seq_len  # transitions kept
+    t = torch.arange(raw.shape[1] - 1, device=raw.device)[None, :]
+    for name, score in scorers.items():
+        s = torch.where(t < (lens - 1)[:, None], score(raw), float("-inf"))
+        top = torch.sort(s, dim=-1, descending=True).values
+        for b in rows:
+            gap = (top[b, k - 1] - top[b, k]).item()
+            print(f"  clip {b} {name}: score gap at the boundary {gap}")
+
+
+def _bench_and_hold(torch, model, cfg32, seq_len, gpu, label, seed, method="sad"):
+    """Time a bench-shaped step (B=32, raw L=2T, ragged lengths, ``method``
     selection, forward) as clips/s; hold the kernel path against the plain
     path, and an f32 copy of the model on the card against the CPU."""
     import vct_torch.data.preprocess as preprocess
     from vct_torch.models import build_model
     from vct_torch.ops.pair_scores import pair_scores_ref
+    from vct_torch.ops.ssim import ssim_pair_scores_ref
 
     rng = np.random.RandomState(seed)
     raw = torch.from_numpy(rng.randint(0, 256, (32, 2 * seq_len, H, W, 3), dtype=np.uint8)).cuda()
     lens = torch.from_numpy(rng.randint(seq_len + 1, 2 * seq_len + 1, size=32)).cuda()
 
     def sample():
-        return preprocess.device_sample_clips(raw, seq_len, method="sad", lengths=lens)
+        return preprocess.device_sample_clips(raw, seq_len, method=method, lengths=lens)
 
     torch.backends.cudnn.deterministic = False
     with torch.inference_mode():
@@ -292,22 +397,29 @@ def _bench_and_hold(torch, model, cfg32, seq_len, gpu, label, seed):
         head_ms = _events_ms(torch, lambda: model(feats, from_features=True), iters=10)
     print(json.dumps({
         "config": label, "serving_clips_per_s": 32 * 1e3 / step_ms, "batch": 32,
+        "sampling": method,
         "raw_len": 2 * seq_len, "T": seq_len, "ms_per_batch": step_ms, "sampling_ms": sample_ms,
         "forward_ms": forward_ms, "backbone_ms": backbone_ms, "head_ms": head_ms, "gpu": gpu,
     }))
 
     # --- kernel path vs the same path with the plain versions ------------
+    scorer = {"sad": ("pair_scores", pair_scores_ref),
+              "ssim": ("ssim_pair_scores", ssim_pair_scores_ref)}[method]
     torch.backends.cudnn.deterministic = True  # same conv algorithms on both paths
     with torch.inference_mode():
-        idx_k = preprocess.sample_indices(raw, seq_len, "sad", lens)
+        idx_k = preprocess.sample_indices(raw, seq_len, method, lens)
         logits_k = model(sample())
         _set_scan_impl(model, "scan")
-        with mock.patch.object(preprocess, "pair_scores", pair_scores_ref):
-            idx_p = preprocess.sample_indices(raw, seq_len, "sad", lens)
+        with mock.patch.object(preprocess, *scorer):
+            idx_p = preprocess.sample_indices(raw, seq_len, method, lens)
             logits_p = model(sample())
         _set_scan_impl(model, "pallas")
     if not torch.equal(idx_k, idx_p):
-        raise AssertionError(f"{label}: kernel and plain SAD selection picked different frames")
+        rows = sorted({int(b) for b in (idx_k != idx_p).any(dim=1).nonzero()[:, 0]})
+        with torch.inference_mode():
+            _selection_gaps(torch, preprocess, raw, lens, seq_len, method, rows)
+        raise AssertionError(f"{label}: kernel and plain {method} selection picked different "
+                             f"frames in clips {rows}")
     torch.testing.assert_close(logits_k, logits_p, atol=1e-4, rtol=1e-4)
     print(f"{label}: kernel path == plain path: frame indices equal, logits max abs err "
           f"{(logits_k - logits_p).abs().max().item()}")
@@ -316,47 +428,49 @@ def _bench_and_hold(torch, model, cfg32, seq_len, gpu, label, seed):
     # --- the card against the CPU, f32, same seed -------------------------
     with torch.inference_mode():
         on_card = build_model(cfg32, seq_len, seed=0)(sample()[:2]).cpu()
-        x_cpu = preprocess.device_sample_clips(raw[:2].cpu(), seq_len, method="sad",
+        x_cpu = preprocess.device_sample_clips(raw[:2].cpu(), seq_len, method=method,
                                                lengths=lens[:2].cpu())
         on_cpu = build_model(cfg32, seq_len, device="cpu", seed=0)(x_cpu)
     torch.testing.assert_close(on_card, on_cpu, atol=1e-3, rtol=1e-3)
     print(f"{label}: f32 card vs CPU logits max abs err {(on_card - on_cpu).abs().max().item()}")
 
 
-def _main_path(torch, gpu):
+def _serve_deployed(torch, gpu, model, samplings, label):
+    """The deployed model serves three requests of four decoded videos each,
+    request r with ``samplings[r]``; the kernels' launch counts are read
+    around exactly that run. Then the bench-shaped step is timed and held."""
     from vct_torch.core.config import ModelConfig
-    from vct_torch.models import build_model
     from vct_torch.ops.pair_scores import pair_scores
+    from vct_torch.ops.preprocess import normalize_frames
     from vct_torch.ops.selective_scan import selective_scan
-    from vct_torch.serve.deployment import classify_and_display, sample_decoded_clips
+    from vct_torch.ops.ssim import ssim_pair_scores
+    from vct_torch.serve.deployment import (_DEVICE_METHODS, classify_and_display,
+                                            sample_decoded_clips)
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    deployed = dict(cnn_backbone="resnet50", rnn_type="mamba", rnn_input_size=8,
-                    rnn_layer=3, scan_impl="pallas")
-    cfg = ModelConfig(**deployed, compute_dtype="bfloat16")
-    model = build_model(cfg, T, seed=0)
-    class_names = [f"class_{i}" for i in range(cfg.num_classes)]
-
-    # --- the main path: three requests of four decoded videos each -------
+    counters = {"pair_scores": pair_scores, "ssim_pair_scores": ssim_pair_scores,
+                "selective_scan": selective_scan, "normalize_frames": normalize_frames}
+    method = _DEVICE_METHODS[samplings[0]]
+    class_names = [f"class_{i}" for i in range(ModelConfig(**DEPLOYED).num_classes)]
     lengths = [40, 75, 121, 200, 60, 100, 150, 55, 120, 61, 180, 90]
     videos = _synthetic_videos(lengths, seed=0)
     names = [f"@user{i}_video_{1000 + i}.mp4" for i in range(len(videos))]
-    pair_scores.launches = 0
-    selective_scan.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     results = []
-    for r in range(3):
+    for r, sampling in enumerate(samplings):
         batch = slice(4 * r, 4 * r + 4)
-        clips = sample_decoded_clips(videos[batch], "sad", T)
+        clips = sample_decoded_clips(videos[batch], sampling, T)
         results += classify_and_display(model, clips, names[batch], class_names, batch_size=4)
     torch.cuda.synchronize()
-    launches = {"pair_scores": pair_scores.launches, "selective_scan": selective_scan.launches}
-    want = {"pair_scores": sum(n > T for n in lengths), "selective_scan": 3 * cfg.rnn_layer}
-    print(f"main path launches {launches} (expected {want})")
+    launches = {n: fn.launches for n, fn in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    want["ssim_pair_scores" if method == "ssim" else "pair_scores"] = sum(n > T for n in lengths)
+    want["selective_scan"] = len(samplings) * DEPLOYED["rnn_layer"]
+    print(f"{label} path ({', '.join(samplings)}) launches {launches} (expected {want})")
     if launches != want:
-        raise AssertionError(f"kernel launches {launches} != expected {want}")
+        raise AssertionError(f"{label}: kernel launches {launches} != expected {want}")
     _check_served(results, names)
-    _bench_and_hold(torch, model, ModelConfig(**deployed), T, gpu, "deployed_mamba", seed=1)
+    _bench_and_hold(torch, model, ModelConfig(**DEPLOYED), T, gpu, label, seed=1, method=method)
     return launches
 
 
@@ -370,7 +484,11 @@ def _recurrent_path(torch, gpu):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    counters = {"pair_scores": pair_scores,
+    from vct_torch.ops.preprocess import normalize_frames
+    from vct_torch.ops.ssim import ssim_pair_scores
+
+    counters = {"pair_scores": pair_scores, "ssim_pair_scores": ssim_pair_scores,
+                "normalize_frames": normalize_frames,
                 **{n: getattr(rnn_ops, n) for n in RNN_KERNELS}}
     lengths = [30, 75, 121, 200]
     videos = _synthetic_videos(lengths, seed=2)
@@ -455,7 +573,9 @@ def _rnn_timing(torch, gen, ops, cell, kind, B, T_, Hd, L, in_size=512):
 def _kernel_timings(torch, gen, launches, errs, gpu):
     from vct_torch.ops import lstm as rnn_ops
     from vct_torch.ops.pair_scores import pair_scores, pair_scores_ref
+    from vct_torch.ops.preprocess import normalize_frames, normalize_frames_ref
     from vct_torch.ops.selective_scan import selective_scan, selective_scan_ref
+    from vct_torch.ops.ssim import ssim_pair_scores, ssim_pair_scores_ref
 
     def k1(B, L, method="sad"):
         x = torch.randint(0, 256, (B, L, H, W, 3), dtype=torch.uint8, generator=gen).cuda()
@@ -480,7 +600,35 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
             "bound_ms": bound, "bound_by": by,
         }
 
+    def k4(B, L):
+        x = torch.randint(0, 256, (B, L, H, W, 3), dtype=torch.uint8, generator=gen).cuda()
+        valid = B * (L - 1) * (H - 2) * (W - 2) * 3
+        bound, by = _bound_ms(B * L * H * W * 3 + B * (L - 1) * 4, SSIM_OPS_PER_ELEMENT * valid)
+        return {
+            "shape": [B, L, H, W, 3],
+            "ms": _events_ms(torch, lambda: ssim_pair_scores(x), 20),
+            "device_ms": _graph_ms(torch, lambda: ssim_pair_scores(x), 20),
+            "plain_ms": _events_ms(torch, lambda: ssim_pair_scores_ref(x), 3, warmup=1),
+            "bound_ms": bound, "bound_by": by,
+        }
+
+    def k6(shape):
+        x = torch.randint(0, 256, shape, dtype=torch.uint8, generator=gen).cuda()
+        mean, std = torch.tensor(IMAGENET_MEAN).cuda(), torch.tensor(IMAGENET_STD).cuda()
+        n = x.numel()
+        # 1 byte read and 4 written per element, the (C,) mean and std read;
+        # 4 operations per element: widen, scale, subtract, multiply.
+        bound, by = _bound_ms(5 * n + 2 * 4 * 3, 4 * n)
+        return {
+            "shape": list(shape), "stats": "imagenet",
+            "ms": _events_ms(torch, lambda: normalize_frames(x, mean, std), 20),
+            "device_ms": _graph_ms(torch, lambda: normalize_frames(x, mean, std), 20),
+            "plain_ms": _events_ms(torch, lambda: normalize_frames_ref(x, mean, std), 5),
+            "bound_ms": bound, "bound_by": by,
+        }
+
     t1, t3 = k1(32, 2 * T), k3(32, T, 16, 32)
+    t4, t6 = k4(32, 2 * T), k6((32, T, H, W, 3))
     kernels = [
         {"name": "pair_scores", "route": "cuda", "source": "vct_torch/csrc/pair_scores.cu",
          "replaces": "vct/ops/pair_scores_pallas.py:119", "launches": launches["pair_scores"],
@@ -493,6 +641,17 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
          "ms": t3["ms"], "plain_ms": t3["plain_ms"], "bound_ms": t3["bound_ms"],
          "bound_by": t3["bound_by"], "library_ms": None,
          "device_ms": t3["device_ms"], "shape": t3["shape"]},
+        {"name": "ssim_pair_scores", "route": "cuda", "source": "vct_torch/csrc/ssim.cu",
+         "replaces": "vct/ops/ssim_pallas.py:156", "launches": launches["ssim_pair_scores"],
+         "max_abs_err": errs["ssim_pair_scores"], "ms": t4["ms"], "plain_ms": t4["plain_ms"],
+         "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"], "library_ms": None,
+         "device_ms": t4["device_ms"], "shape": t4["shape"]},
+        {"name": "normalize_frames", "route": "cuda", "source": "vct_torch/csrc/normalize.cu",
+         "replaces": "vct/ops/preprocess_pallas.py:34", "launches": launches["normalize_frames"],
+         "paths": "none: no serving path calls it, as in vct",
+         "max_abs_err": errs["normalize_frames"], "ms": t6["ms"], "plain_ms": t6["plain_ms"],
+         "bound_ms": t6["bound_ms"], "bound_by": t6["bound_by"], "library_ms": None,
+         "device_ms": t6["device_ms"], "shape": t6["shape"]},
     ]
     for name in RNN_KERNELS:
         cell, kind = name.split("_")
@@ -506,6 +665,7 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
     extra = {"extra_timings": {
         "pair_scores_B1_L120_sad": k1(1, 2 * T),
         "pair_scores_B32_L120_flow": k1(32, 2 * T, "flow"),
+        "ssim_pair_scores_B1_L120": k4(1, 2 * T),
         "selective_scan_D2048_N16": k3(2, 256, 2048, 16),
         "lstm_stack_B4_served": _rnn_timing(torch, gen, rnn_ops, "lstm", "stack", 4, T_UCF50, 56, 4),
         "gru_stack_B4_served": _rnn_timing(torch, gen, rnn_ops, "gru", "stack", 4, T_UCF50, 56, 4),
@@ -540,12 +700,28 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(0)
     errs = {"pair_scores": _check_pair_scores(torch, gen),
+            "ssim_pair_scores": _check_ssim(torch, gen),
+            "normalize_frames": _check_normalize(torch, gen),
             "selective_scan": _check_selective_scan(torch, gen),
             **_check_rnn(torch, gen)}
-    launches = _main_path(torch, gpu)  # K1, K3: the Mamba path's counts
+
+    from vct_torch.core.config import ModelConfig
+    from vct_torch.models import build_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_model(ModelConfig(**DEPLOYED, compute_dtype="bfloat16"), T, seed=0)
+    # K1, K3: the SAD Mamba path's counts; K4: the SSIM Mamba path's.
+    launches = _serve_deployed(torch, gpu, model, ("sad",) * 3, "deployed_mamba")
+    ssim_launches = _serve_deployed(torch, gpu, model, ("ssim", "ssim_most_unique", "ssim"),
+                                    "deployed_mamba_ssim")
+    del model
     rnn_launches = _recurrent_path(torch, gpu)
     print(f"LSTM/GRU path launches over the four heads {rnn_launches}")
     launches.update({n: rnn_launches[n] for n in RNN_KERNELS})
+    launches["ssim_pair_scores"] = ssim_launches["ssim_pair_scores"]
+    launches["normalize_frames"] = sum(
+        c["normalize_frames"] for c in (launches, ssim_launches, rnn_launches))
     kernels = _kernel_timings(torch, gen, launches, errs, gpu)
     print(json.dumps({"kernels": kernels, "gpu": gpu}))
     print(_gpu_line())  # name, power limit: exactly as nvidia-smi prints them

@@ -6,10 +6,12 @@ the root conftest (it exists for JAX's CPU re-exec):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 
-Tolerances: SAD and flow exact (both sides sum exactly in integers); the
-selective scan and the LSTM/GRU recurrences atol = rtol = 1e-5 (f32,
-summation order and fused multiply-adds); logits atol = rtol = 1e-4 with
-TF32 off.
+Tolerances: SAD and flow exact (both sides sum exactly in integers); SSIM
+atol 2e-6 (vct's own tolerance; the kernel repeats the plain version's f32
+operations unfused and sums in f64, so it is expected bit-equal); the frame
+normalize exact; the selective scan and the LSTM/GRU recurrences
+atol = rtol = 1e-5 (f32, summation order and fused multiply-adds); logits
+atol = rtol = 1e-4 with TF32 off.
 """
 
 import numpy as np
@@ -21,7 +23,9 @@ from vct_torch.data import preprocess
 from vct_torch.models import build_model
 from vct_torch.ops import lstm as rnn_ops
 from vct_torch.ops.pair_scores import pair_scores, pair_scores_ref
+from vct_torch.ops.preprocess import normalize_frames, normalize_frames_ref
 from vct_torch.ops.selective_scan import selective_scan, selective_scan_ref
+from vct_torch.ops.ssim import ssim_pair_scores, ssim_pair_scores_ref
 from vct_torch.serve.deployment import classify_videos, sample_decoded_clips
 
 pytestmark = pytest.mark.cuda
@@ -49,6 +53,38 @@ def test_pair_scores_kernel_matches_plain(cuda_device, shape, method):
     want = pair_scores_ref(x, method)
     torch.cuda.synchronize()
     assert pair_scores.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(4, 19, 80, 80, 3), (1, 9, 11, 44, 3), (2, 21, 16, 48, 1),
+                                   (3, 4, 3, 3, 3)])
+def test_ssim_kernel_matches_plain(cuda_device, shape):
+    x = torch.from_numpy(_clips(shape)).to(cuda_device)
+    before = ssim_pair_scores.launches
+    got = ssim_pair_scores(x)
+    want = ssim_pair_scores_ref(x)
+    torch.cuda.synchronize()
+    assert ssim_pair_scores.launches == before + 1
+    torch.testing.assert_close(got, want, atol=2e-6, rtol=0)
+
+
+def test_ssim_kernel_scores_static_clips_one(cuda_device):
+    x = torch.from_numpy(np.repeat(_clips((2, 1, 80, 80, 3)), 6, axis=1)).to(cuda_device)
+    assert torch.equal(ssim_pair_scores(x), torch.ones((2, 5), device=cuda_device))
+
+
+@pytest.mark.parametrize("stats", ["identity", "imagenet"])
+@pytest.mark.parametrize("shape", [(4, 6, 80, 80, 3), (3, 7, 5, 3), (2, 5, 9, 1)])
+def test_normalize_kernel_matches_plain(cuda_device, shape, stats):
+    x = torch.from_numpy(_clips(shape)).to(cuda_device)
+    C = shape[-1]
+    mean, std = (None, None) if stats == "identity" else (
+        [0.485, 0.456, 0.406][:C], [0.229, 0.224, 0.225][:C])
+    before = normalize_frames.launches
+    got = normalize_frames(x, mean, std)
+    want = normalize_frames_ref(x, mean, std)
+    torch.cuda.synchronize()
+    assert normalize_frames.launches == before + 1
     assert torch.equal(got, want)
 
 
@@ -112,6 +148,16 @@ def test_kernel_wrappers_refuse_what_they_cannot_take(cuda_device):
         pair_scores(x.to(torch.int32))
     with pytest.raises(ValueError):
         pair_scores(x.transpose(2, 3))
+    with pytest.raises(TypeError):
+        ssim_pair_scores(x.to(torch.int32))
+    with pytest.raises(ValueError):
+        ssim_pair_scores(x.transpose(2, 3))
+    with pytest.raises(ValueError, match="win"):
+        ssim_pair_scores(x, win=5)
+    with pytest.raises(TypeError):
+        normalize_frames(x.to(torch.int32))
+    with pytest.raises(ValueError):
+        normalize_frames(x.transpose(2, 3))
     args = [torch.rand(2, 5, 8, device=cuda_device)] * 2 + [
         -torch.rand(8, 12, device=cuda_device), torch.rand(2, 5, 12, device=cuda_device),
         torch.rand(2, 5, 12, device=cuda_device),
@@ -173,3 +219,23 @@ def test_recurrent_serving_path_goes_through_the_kernels(cuda_device, rnn_type, 
         want_logits = model.to("cpu")(clips.cpu())
         got = model.to(cuda_device)(clips)
     torch.testing.assert_close(got.cpu(), want_logits, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("sampling", ["ssim", "ssim_most_unique"])
+def test_ssim_serving_path_goes_through_the_kernel(cuda_device, sampling):
+    T = 4
+    cfg = ModelConfig(num_classes=3, cnn_backbone="resnet18", scan_impl="pallas")
+    model = build_model(cfg, T, seed=0)
+    videos = [_clips((n, 16, 16, 3), seed=n) for n in (3, 7, 12)]
+    ssim_pair_scores.launches = pair_scores.launches = selective_scan.launches = 0
+    clips = sample_decoded_clips(videos, sampling, T)
+    probs = classify_videos(model, clips, batch_size=4)
+    assert ssim_pair_scores.launches == 2  # the two videos longer than T
+    assert pair_scores.launches == 0
+    assert selective_scan.launches == cfg.rnn_layer  # one forward
+    assert probs.shape == (3, 3) and np.isfinite(probs).all()
+    torch.testing.assert_close(clips.cpu(), sample_decoded_clips(videos, sampling, T, device="cpu"),
+                               rtol=1e-6, atol=0)
+    raw = torch.from_numpy(_clips((2, 12, 16, 16, 3)))
+    idx_cpu = preprocess.sample_indices(raw, T, "ssim")
+    assert torch.equal(idx_cpu, preprocess.sample_indices(raw.to(cuda_device), T, "ssim").cpu())

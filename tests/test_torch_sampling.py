@@ -116,25 +116,12 @@ def test_duplicate_frames_matches_vct():
         np.testing.assert_array_equal(np.stack(got), np.stack(want))
 
 
-def test_ssim_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="K4"):
-        device_sample_clips(torch.from_numpy(_raw()), T, method="ssim")
-
-
-def test_resize_is_not_ported_yet():
-    raw = torch.from_numpy(_raw())
-    with pytest.raises(NotImplementedError):
-        device_sample_clips(raw, T, method="sad", out_hw=(4, 4))
-    same = device_sample_clips(raw, T, method="sad", out_hw=(8, 8))
-    np.testing.assert_array_equal(same.numpy(), device_sample_clips(raw, T).numpy())
-
-
 def _videos(lengths, seed=1):
     rng = np.random.RandomState(seed)
     return [rng.randint(0, 256, size=(n, 8, 8, 3), dtype=np.uint8) for n in lengths]
 
 
-@pytest.mark.parametrize("sampling", ["sad", "optical_flow", "uniform"])
+@pytest.mark.parametrize("sampling", ["sad", "optical_flow", "uniform", "ssim", "ssim_most_unique"])
 def test_sample_decoded_clips_matches_vct(sampling, tmp_path, monkeypatch):
     lengths = [3, 6, 7, 12, 13, 30]  # short, equal to T, the 12 and 24 buckets, 48
     videos = _videos(lengths)

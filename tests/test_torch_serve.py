@@ -134,3 +134,32 @@ def test_slice_end_to_end_matches_vct(models):
         torch.softmax(torch.from_numpy(logits_got), -1).numpy(),
         np.asarray(jax.nn.softmax(logits_want, -1)), atol=1e-4, rtol=1e-4,
     )
+
+
+@pytest.mark.parametrize("sampling", ["ssim", "ssim_most_unique"])
+def test_ssim_slice_end_to_end_matches_vct(models, sampling):
+    """Decoded uint8 videos (short, bucket-padded, ragged) -> SSIM selection
+    (the ssim_pair_scores plain version) -> LRCN logits -> softmax, through
+    both packages with the same weights."""
+    flax_model, variables, torch_model = models
+    rng = np.random.RandomState(11)
+    videos = [rng.randint(0, 256, size=(n, 16, 16, 3), dtype=np.uint8) for n in (3, 9, 17)]
+    x_got = deployment.sample_decoded_clips(videos, sampling, T, device="cpu")
+    clips = []
+    for v in videos:  # vct's post-decode half of _load_with_device_sampling
+        if len(v) <= T:
+            clips.append(np.stack([v[i % len(v)] for i in range(T)]) / np.float32(255))
+            continue
+        bucket = vct_deployment._length_bucket(len(v), T)
+        raw = np.concatenate([v, np.repeat(v[-1:], bucket - len(v), axis=0)])[None]
+        clips.append(np.asarray(vct_sample(jnp.asarray(raw), T, method="ssim",
+                                           lengths=jnp.asarray([len(v)], jnp.int32)))[0])
+    x_want = np.stack(clips)
+    np.testing.assert_allclose(x_got.numpy(), x_want, rtol=1e-6, atol=0)
+    probs_want = vct_deployment.classify_videos(flax_model, variables, x_want, batch_size=2)
+    probs_got = deployment.classify_videos(torch_model, x_got, batch_size=2, device="cpu")
+    np.testing.assert_allclose(probs_got, probs_want, atol=1e-4, rtol=1e-4)
+    with torch.no_grad():
+        logits_got = torch_model(x_got).numpy()
+    logits_want = np.asarray(flax_model.apply(variables, jnp.asarray(x_want)))
+    np.testing.assert_allclose(logits_got, logits_want, atol=1e-4, rtol=1e-4)

@@ -7,10 +7,12 @@ CUDA kernels live in ``vct_torch/csrc`` and are built on first CUDA use
 (``vct_torch.ops._build``).
 
 It covers the serving path: on-device SAD/flow frame selection (kernel
-``pair_scores``), the LRCN classifier with a ResNet backbone and a Mamba head
+``pair_scores``) and SSIM frame selection (kernel ``ssim_pair_scores``),
+the bilinear resize, the LRCN classifier with a ResNet backbone and a Mamba head
 (kernel ``selective_scan``) or an LSTM/GRU head (kernels ``lstm_stack`` /
 ``gru_stack`` and ``lstm_scan`` / ``gru_scan``), and the batched softmax
-serving entry points in ``vct_torch.serve.deployment``.
+serving entry points in ``vct_torch.serve.deployment``; and the frame
+normalize kernel ``normalize_frames``, which no path calls, as in ``vct``.
 """
 
 from vct_torch.device import resolve_device

@@ -25,7 +25,8 @@ __all__ = ["SOURCES", "build_dir", "check", "load_kernels"]
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / ".vct_torch_build"
-SOURCES = ("common.cu", "pair_scores.cu", "selective_scan.cu", "lstm.cu")
+SOURCES = ("common.cu", "pair_scores.cu", "selective_scan.cu", "lstm.cu", "ssim.cu",
+           "normalize.cu")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -93,9 +94,13 @@ def _build(out_dir: Path) -> Path:
 
 
 def _declare(lib) -> None:
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.vct_pair_scores.argtypes = [p, p, i, i, ll, i, p]
     lib.vct_pair_scores.restype = i
+    lib.vct_ssim_pair_scores.argtypes = [p, p, i, i, i, i, i, f, f, f, f, p]
+    lib.vct_ssim_pair_scores.restype = i
+    lib.vct_normalize_frames.argtypes = [p, p, ll, i, p, p, f, p]
+    lib.vct_normalize_frames.restype = i
     lib.vct_selective_scan_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.vct_selective_scan_fwd.restype = i
     lib.vct_rnn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]

@@ -5,7 +5,9 @@ Port of the serving half of ``vct/serve/deployment.py``:
 * ``sample_decoded_clips`` — the post-decode half of
   ``_load_with_device_sampling``: short videos are cycled up to T, longer
   ones are padded to a power-of-two length bucket and go through on-device
-  frame selection (``device_sample_clips``) with their true length.
+  frame selection (``device_sample_clips``) with their true length: SAD
+  and flow scores from the ``pair_scores`` kernel, SSIM scores (``ssim``,
+  ``ssim_most_unique``) from the ``ssim_pair_scores`` kernel.
 * ``classify_videos`` — batched softmax probabilities, the final partial
   chunk zero-padded to ``batch_size`` so every forward has one shape.
 * ``classify_and_display`` — the reference's output contract: per-video

@@ -1,10 +1,11 @@
 """Profile bench-shaped serving steps on the card.
 
     python3 -m vct_torch.tools.profile_serving [--steps 3] [--config deployed_mamba|ucf50_lstm]
+        [--sampling sad|ssim]
 
-One step is what ``chip_smoke.py`` times as clips/s: SAD frame selection of
-a (32, 2T, 80, 80, 3) uint8 batch with ragged lengths, then the forward of
-the LRCN with seeded weights: the deployed config (resnet50 in bf16, 3
+One step is what ``chip_smoke.py`` times as clips/s: SAD (or SSIM) frame
+selection of a (32, 2T, 80, 80, 3) uint8 batch with ragged lengths, then
+the forward of the LRCN with seeded weights: the deployed config (resnet50 in bf16, 3
 Mamba blocks, T=60) or the UCF50 one (resnet50 in bf16, rnn_input 512, 4
 LSTM layers of H=56, T=40, scan_impl "pallas"). Prints the top kernels by
 device time, the device time grouped by kind, and the device busy share of
@@ -34,6 +35,8 @@ CONFIGS = {
 
 # Kernel-name fragments -> group, first match wins.
 _GROUPS = (
+    ("ssim_pair_scores (K4)", ("ssim_pair_kernel",)),
+    ("normalize_frames (K6)", ("normalize_frames",)),
     ("pair_scores (K1)", ("pair_scores_kernel",)),
     ("selective_scan (K3)", ("selective_scan_fwd_kernel",)),
     ("lstm / gru (K2, K5)", ("rnn_stack_kernel",)),
@@ -63,6 +66,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--config", choices=sorted(CONFIGS), default="deployed_mamba")
+    parser.add_argument("--sampling", choices=("sad", "ssim"), default="sad")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serving needs an NVIDIA GPU", file=sys.stderr)
@@ -78,7 +82,7 @@ def main(argv=None) -> int:
     lens = torch.from_numpy(rng.randint(T + 1, 2 * T + 1, size=32)).cuda()
 
     def step():
-        return model(device_sample_clips(raw, T, method="sad", lengths=lens))
+        return model(device_sample_clips(raw, T, method=args.sampling, lengths=lens))
 
     with torch.inference_mode():
         for _ in range(3):
@@ -109,7 +113,7 @@ def main(argv=None) -> int:
         for n, us, c in top
     ]}))
     print(json.dumps({
-        "config": args.config, "steps": args.steps, "gpu": gpu,
+        "config": args.config, "sampling": args.sampling, "steps": args.steps, "gpu": gpu,
         "window_ms_per_step": window_us / 1e3 / args.steps,
         "device_ms_per_step": total_us / 1e3 / args.steps,
         "device_busy_share": total_us / window_us if window_us else None,
