@@ -10,7 +10,8 @@ Phases (any failure exits non-zero, and only a full pass prints the last
 line):
 
 1. device — the card's name and power limit (nvidia-smi);
-2. build — nvcc builds the kernels of ``vct_torch/csrc`` (timed);
+2. build — nvcc builds the kernels of ``vct_torch/csrc`` (timed) and each
+   kernel's registers, stack frame and spills are printed;
 3. K1 ``pair_scores`` against ``pair_scores_ref`` on the card: SAD
    bit-exact, flow rtol 1e-6 (both sum exactly in integers);
 4. K4 ``ssim_pair_scores`` against ``ssim_pair_scores_ref`` on the card:
@@ -25,12 +26,18 @@ line):
 6. K3 ``selective_scan`` against ``selective_scan_ref`` on the card:
    atol = rtol = 1e-5 (f32, summation order and fused multiply-adds);
 7. K2 ``lstm_stack`` / ``gru_stack`` and K5 ``lstm_scan`` / ``gru_scan``
-   against their plain versions on the card, TF32 off, atol = rtol = 1e-5:
-   the bench stack (B=32, T=40, H=56, L=4), a served request (B=4), the
-   kernel's shared-memory plans (H=96 LSTM: W_hh staged, W_ih read through L2;
-   H=256: both weights through L2; H=512, T=128: the previous layer's
-   outputs through L2 too), an odd H=5, T=1, and K5 forward and through
-   the time flip;
+   against their plain versions on the card, TF32 off, atol = rtol = 1e-5,
+   each launched just after NaN was left in every SM's shared memory (a
+   kernel that reads shared memory it did not write fails), and
+   each shape printed with the kernel design it took (``design``, checked:
+   "registers" for H <= 64, "columns" above): the bench stack (B=32, T=40,
+   H=56, L=4), a served request (B=4), one video (B=1), the register
+   design's edges (H=64 at L=4, the default width H=32 at T=60, T=130 over
+   three staged chunks, H=16 with two k-slices), the "columns" design's
+   shared-memory plans (H=65, its first shape; H=96 LSTM: W_hh staged,
+   W_ih read through L2; H=256: both weights through L2; H=512, T=128: the
+   previous layer's outputs through L2 too), an odd H=5, T=1, and K5
+   forward and through the time flip;
 8. the Mamba path — the deployed config (resnet50 bf16 backbone, 3 Mamba
    blocks, rnn_input 8, T=60, 80x80, scan_impl "pallas") with seeded
    weights serves three requests of four decoded videos each through
@@ -56,9 +63,12 @@ line):
    is timed as clips/s, held against the plain path (equal frame indices,
    logits atol = rtol = 1e-4) and against the CPU in f32 (1e-3);
 11. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
-    launches, error, time, plain time, bound and, for K2/K5, cuDNN's
-    ``nn.LSTM`` / ``nn.GRU`` time, and a line of extra timings at the other
-    shapes. K6 is on no serving path (as in vct): its launches are 0.
+    launches, error, time, plain time, bound and, for K2/K5, the design,
+    ``us_per_step`` (device time over T*L) and cuDNN's ``nn.LSTM`` /
+    ``nn.GRU`` time (``library_ms`` by events; ``library_device_ms`` replayed
+    from a CUDA graph, or the median of 5 event runs where capture fails,
+    as ``library_device_via`` says), and a line of extra timings at the
+    other shapes. K6 is on no serving path (as in vct): its launches are 0.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -106,6 +116,21 @@ def _gpu_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def _ptxas_lines(log: str) -> list[str]:
+    """One line per compiled kernel from nvcc's ``-Xptxas -v`` log: its
+    mangled name, registers, and stack frame and spills."""
+    rows, name, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and name:
+            rows.append(f"  {name}: {line.split('Used', 1)[1].strip()}; {spill}")
+            name, spill = None, ""
+    return rows
 
 
 def _bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -276,13 +301,25 @@ def _rnn_inputs(torch, gen, n_gates, B, T, Hd, L):
 
 def _check_rnn(torch, gen):
     from vct_torch.ops import lstm as ops
+    from vct_torch.ops._build import fill_shared_memory
+
+    def stale(op, *args):
+        """``op`` launched after NaN was left in every SM's shared memory."""
+        fill_shared_memory(float("nan"))
+        return op(*args)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     errs = dict.fromkeys(("lstm_stack", "gru_stack", "lstm_scan", "gru_scan"), 0.0)
-    # (B, T, H, L): the bench stack, a served request, the three smaller
-    # shared-memory plans (see phase 5 above), an odd H, T=1.
-    shapes = [(32, 40, 56, 4), (4, 40, 56, 4), (2, 16, 96, 2), (2, 16, 256, 2),
+    # (B, T, H, L): the bench stack, a served request, one video; the
+    # register design's edges (H=64 at L=4, the largest plan; the default
+    # width H=32 at T=60; T=130 over three staged chunks; H=16, the widest
+    # LSTM with two k-slices per gate column); the "columns"
+    # design's shared-memory plans (H=65, its first shape; H=96: W_hh
+    # staged, W_ih read through L2; H=256: both weights through L2; H=512,
+    # T=128: the previous layer's outputs through L2 too); an odd H, T=1.
+    shapes = [(32, 40, 56, 4), (4, 40, 56, 4), (1, 40, 56, 4), (2, 16, 64, 4), (32, 60, 32, 3),
+              (2, 130, 17, 3), (3, 40, 16, 4), (2, 16, 65, 2), (2, 16, 96, 2), (2, 16, 256, 2),
               (1, 128, 512, 2), (3, 7, 5, 3), (2, 1, 56, 2)]
     for cell, n_gates in (("lstm", 4), ("gru", 3)):
         stack, scan = getattr(ops, f"{cell}_stack"), getattr(ops, f"{cell}_scan")
@@ -290,21 +327,26 @@ def _check_rnn(torch, gen):
         for B, T_, Hd, L in shapes:
             xp, w_hh, b_hh, w_ih, b_ih = _rnn_inputs(torch, gen, n_gates, B, T_, Hd, L)
             cases = [
-                (f"{cell}_stack", stack(xp, w_hh, b_hh, w_ih, b_ih),
+                (f"{cell}_stack", L, stale(stack, xp, w_hh, b_hh, w_ih, b_ih),
                  ops.stack_ref(xp, w_hh, b_hh, w_ih, b_ih)),
-                (f"{cell}_scan", scan(xp, w_hh[0], b_hh[0]), scan_ref(xp, w_hh[0], b_hh[0])),
+                (f"{cell}_scan", 1, stale(scan, xp, w_hh[0], b_hh[0]),
+                 scan_ref(xp, w_hh[0], b_hh[0])),
             ]
             if (B, T_, Hd) == (32, 40, 56):  # K5 through the flip, as the reverse direction runs
                 flip = torch.flip(xp, dims=(1,))
-                cases.append((f"{cell}_scan", torch.flip(scan(flip, w_hh[1], b_hh[1]), dims=(1,)),
+                cases.append((f"{cell}_scan", 1,
+                              torch.flip(stale(scan, flip, w_hh[1], b_hh[1]), dims=(1,)),
                               torch.flip(scan_ref(flip, w_hh[1], b_hh[1]), dims=(1,))))
             torch.cuda.synchronize()
-            for name, got, want in cases:
+            for name, layers, got, want in cases:
+                design = ops.design(T_, Hd, layers, n_gates)
+                if design != ("registers" if Hd <= 64 else "columns"):
+                    raise AssertionError(f"{name} H={Hd}: took the {design} design")
                 torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
                 err = (got - want).abs().max().item()
                 errs[name] = max(errs[name], err)
-                layers = f" L={L}" if name.endswith("stack") else ""
-                print(f"  {name} B={B} T={T_} H={Hd}{layers}: max abs err {err}")
+                shown = f" L={layers}" if name.endswith("stack") else ""
+                print(f"  {name} B={B} T={T_} H={Hd}{shown}: design {design}, max abs err {err}")
     print(f"K2/K5 lstm/gru stack and scan: {len(shapes)} shapes each agree; max abs err {errs}")
     return errs
 
@@ -525,6 +567,18 @@ def _recurrent_path(torch, gpu):
     return totals
 
 
+def _library_device_ms(torch, fn):
+    """cuDNN's device time: its calls replayed from a CUDA graph, as for the
+    kernels, or, where capture fails on the card, the median of 5 event
+    timings. Returns (ms, how)."""
+    try:
+        return _graph_ms(torch, fn, 20), "cuda_graph"
+    except RuntimeError:
+        torch.cuda.synchronize()
+        runs = sorted(_events_ms(torch, fn, 20) for _ in range(5))
+        return runs[2], "median_of_5_events"
+
+
 def _rnn_timing(torch, gen, ops, cell, kind, B, T_, Hd, L, in_size=512):
     """Time one K2/K5 entry point against its plain version and cuDNN's
     ``nn.LSTM`` / ``nn.GRU`` forward on the same function: layer 0's input
@@ -559,12 +613,15 @@ def _rnn_timing(torch, gen, ops, cell, kind, B, T_, Hd, L, in_size=512):
                           2 * B * T_ * n_w * Hd * GH)
     with torch.inference_mode():
         lib_diff = (lib(x)[0] - op(*args)).abs().max().item()
+        device_ms = _graph_ms(torch, lambda: op(*args), 20)
+        library_device_ms, via = _library_device_ms(torch, lambda: lib(x))
         return {
-            "shape": [B, T_, Hd, L],
+            "shape": [B, T_, Hd, L], "design": ops.design(T_, Hd, L, n_gates),
             "ms": _events_ms(torch, lambda: op(*args), 20),
-            "device_ms": _graph_ms(torch, lambda: op(*args), 20),
+            "device_ms": device_ms, "us_per_step": device_ms / (T_ * L) * 1e3,
             "plain_ms": _events_ms(torch, lambda: plain(*args), 3, warmup=1),
             "library_ms": _events_ms(torch, lambda: lib(x), 20),
+            "library_device_ms": library_device_ms, "library_device_via": via,
             "library_max_abs_diff": lib_diff,
             "bound_ms": bound, "bound_by": by,
         }
@@ -660,7 +717,8 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
             "name": name, "route": "cuda", "source": "vct_torch/csrc/lstm.cu",
             "replaces": RNN_KERNELS[name], "launches": launches[name], "max_abs_err": errs[name],
             **{key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                       "device_ms", "library_max_abs_diff", "shape")},
+                                       "device_ms", "us_per_step", "design", "library_device_ms",
+                                       "library_device_via", "library_max_abs_diff", "shape")},
         })
     extra = {"extra_timings": {
         "pair_scores_B1_L120_sad": k1(1, 2 * T),
@@ -669,6 +727,11 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
         "selective_scan_D2048_N16": k3(2, 256, 2048, 16),
         "lstm_stack_B4_served": _rnn_timing(torch, gen, rnn_ops, "lstm", "stack", 4, T_UCF50, 56, 4),
         "gru_stack_B4_served": _rnn_timing(torch, gen, rnn_ops, "gru", "stack", 4, T_UCF50, 56, 4),
+        "lstm_stack_H64_L4": _rnn_timing(torch, gen, rnn_ops, "lstm", "stack", 32, T_UCF50, 64, 4),
+        "gru_stack_H64_L4": _rnn_timing(torch, gen, rnn_ops, "gru", "stack", 32, T_UCF50, 64, 4),
+        "lstm_stack_default_H32_T60_L3": _rnn_timing(torch, gen, rnn_ops, "lstm", "stack", 32, T,
+                                                     32, 3),
+        "lstm_stack_H65_L4": _rnn_timing(torch, gen, rnn_ops, "lstm", "stack", 32, T_UCF50, 65, 4),
         "lstm_stack_H256_L2": _rnn_timing(torch, gen, rnn_ops, "lstm", "stack", 2, 16, 256, 2,
                                           in_size=256),
     }, "gpu": gpu}
@@ -694,9 +757,9 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load_kernels()
     print(f"build: {time.perf_counter() - t0:.2f} s into {_build.build_dir()}", flush=True)
-    log = (_build.build_dir() / "build.log")
+    log = _build.build_dir() / "build.log"
     if log.is_file():
-        print("\n".join(line for line in log.read_text().splitlines() if "Used" in line))
+        print("\n".join(_ptxas_lines(log.read_text())))
 
     gen = torch.Generator().manual_seed(0)
     errs = {"pair_scores": _check_pair_scores(torch, gen),

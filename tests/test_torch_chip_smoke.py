@@ -1,0 +1,41 @@
+"""CPU tests of ``chip_smoke.py``'s helpers that need no card: the summary
+of nvcc's ``-Xptxas -v`` log it prints after the build, and the bound it
+reports beside each kernel."""
+
+from __future__ import annotations
+
+import pytest
+
+import chip_smoke
+
+# Two entries as ptxas prints them under -v: a templated kernel in an
+# anonymous namespace that spills, and a plain one that does not.
+_LOG = """== lstm.cu (rc 0)
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114rnn_reg_kernelILi4ELi1ELi14EEEvPKfS2_S2_S2_S2_Pfiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114rnn_reg_kernelILi4ELi1ELi14EEEvPKfS2_S2_S2_S2_Pfiii
+    208 bytes stack frame, 204 bytes spill stores, 224 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 208 bytes cumulative stack size
+== normalize.cu (rc 0)
+ptxas info    : Compiling entry function '_Z23normalize_frames_kernelPKhPfx' for 'sm_90a'
+ptxas info    : Function properties for _Z23normalize_frames_kernelPKhPfx
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 18 registers, used 0 barriers, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_lines_name_each_kernel_with_its_registers_and_spills():
+    lines = chip_smoke._ptxas_lines(_LOG)
+    assert len(lines) == 2
+    reg, norm = lines
+    assert "rnn_reg_kernelILi4ELi1ELi14E" in reg
+    assert "255 registers" in reg and "204 bytes spill stores" in reg
+    assert ("normalize_frames_kernel" in norm and "18 registers" in norm
+            and "0 bytes spill stores" in norm)
+
+
+def test_bound_is_the_larger_of_bytes_and_operations():
+    t, by = chip_smoke._bound_ms(chip_smoke.HBM_BYTES_PER_S * 1e-3, 0.0)
+    assert by == "bytes" and t == pytest.approx(1.0)
+    t, by = chip_smoke._bound_ms(1.0, chip_smoke.ALU_OPS_PER_S * 2e-3)
+    assert by == "operations" and t == pytest.approx(2.0)

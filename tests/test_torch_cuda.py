@@ -10,7 +10,8 @@ Tolerances: SAD and flow exact (both sides sum exactly in integers); SSIM
 atol 2e-6 (vct's own tolerance; the kernel repeats the plain version's f32
 operations unfused and sums in f64, so it is expected bit-equal); the frame
 normalize exact; the selective scan and the LSTM/GRU recurrences
-atol = rtol = 1e-5 (f32, summation order and fused multiply-adds); logits
+atol = rtol = 1e-5 (f32, summation order and fused multiply-adds; each
+LSTM/GRU shape also asserts which kernel design it takes); logits
 atol = rtol = 1e-4 with TF32 off.
 """
 
@@ -21,6 +22,7 @@ import torch
 from vct_torch.core.config import ModelConfig
 from vct_torch.data import preprocess
 from vct_torch.models import build_model
+from vct_torch.ops import _build
 from vct_torch.ops import lstm as rnn_ops
 from vct_torch.ops.pair_scores import pair_scores, pair_scores_ref
 from vct_torch.ops.preprocess import normalize_frames, normalize_frames_ref
@@ -128,6 +130,55 @@ def test_rnn_kernel_matches_plain(cuda_device, name, dims):
     torch.cuda.synchronize()
     assert op.launches == before + 1
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def _check_rnn_design(name, dims, device, design, stale=None):
+    """``name`` at ``dims`` takes ``design`` and agrees with its plain
+    version; with ``stale``, launched just after every SM's shared memory was
+    filled with that value."""
+    op = getattr(rnn_ops, name)
+    n_gates = 4 if name.startswith("lstm") else 3
+    B, T, H, L = dims
+    xp, w_hh, b_hh, w_ih, b_ih = _rnn_args(n_gates, *dims, device)
+    assert rnn_ops.design(T, H, L if name.endswith("stack") else 1, n_gates) == design
+    if stale is not None:
+        _build.fill_shared_memory(stale)
+    if name.endswith("stack"):
+        got = op(xp, w_hh, b_hh, w_ih, b_ih)
+        want = rnn_ops.stack_ref(xp, w_hh, b_hh, w_ih, b_ih)
+    else:
+        ref = rnn_ops.lstm_scan_ref if n_gates == 4 else rnn_ops.gru_scan_ref
+        got, want = op(xp, w_hh[0], b_hh[0]), ref(xp, w_hh[0], b_hh[0])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dims", [(2, 16, 64, 4), (1, 40, 56, 4), (32, 40, 56, 4), (4, 60, 32, 3),
+                                  (2, 130, 17, 3), (3, 40, 16, 4)],
+                         ids=["H64", "B1", "bench", "default_width", "three_chunks", "H16"])
+@pytest.mark.parametrize("name", ["lstm_scan", "gru_scan", "lstm_stack", "gru_stack"])
+def test_rnn_register_design_matches_plain(cuda_device, name, dims):
+    """H <= 64 takes the register design, up to its largest plan (H=64,
+    L=4), over T beyond one staged chunk, and with two k-slices per gate
+    column (the GRU at every width, the LSTM at H <= 16)."""
+    _check_rnn_design(name, dims, cuda_device, "registers")
+
+
+@pytest.mark.parametrize("dims", [(2, 40, 12, 3), (2, 40, 17, 3), (2, 130, 5, 3)],
+                         ids=["H12", "H17", "H5_three_chunks"])
+@pytest.mark.parametrize("name", ["lstm_scan", "gru_scan", "lstm_stack", "gru_stack"])
+def test_rnn_register_design_reads_no_stale_shared_memory(cuda_device, name, dims):
+    """Widths whose rows of h are padded in shared memory (H not a multiple
+    of 4 * slices), launched after a kernel that left NaN in every SM's
+    shared memory: the padding is read as zeros, so the result is finite and
+    agrees."""
+    _check_rnn_design(name, dims, cuda_device, "registers", stale=float("nan"))
+
+
+@pytest.mark.parametrize("H", [65, 96])
+@pytest.mark.parametrize("name", ["lstm_scan", "gru_scan", "lstm_stack", "gru_stack"])
+def test_rnn_columns_design_above_64(cuda_device, name, H):
+    _check_rnn_design(name, (2, 16, H, 2), cuda_device, "columns")
 
 
 @pytest.mark.parametrize("dims", [(2, 16, 96, 2), (1, 128, 512, 2)], ids=["W_ih_in_L2", "seq_in_L2"])

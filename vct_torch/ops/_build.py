@@ -20,7 +20,7 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_dir", "check", "load_kernels"]
+__all__ = ["SOURCES", "build_dir", "check", "fill_shared_memory", "load_kernels"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -105,8 +105,12 @@ def _declare(lib) -> None:
     lib.vct_selective_scan_fwd.restype = i
     lib.vct_rnn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.vct_rnn_fwd.restype = i
+    lib.vct_rnn_plan.argtypes = [i, i, i, i]
+    lib.vct_rnn_plan.restype = i
     lib.vct_error_string.argtypes = [i]
     lib.vct_error_string.restype = ctypes.c_char_p
+    lib.vct_fill_shared.argtypes = [f, p]
+    lib.vct_fill_shared.restype = i
 
 
 def load_kernels():
@@ -128,3 +132,14 @@ def check(lib, err: int, what: str) -> None:
     if err != 0:
         msg = lib.vct_error_string(err).decode()
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+def fill_shared_memory(value: float) -> None:
+    """Fill every SM's shared memory with ``value`` on the current CUDA
+    stream (``vct_fill_shared``), so that the next kernel on the stream reads
+    ``value`` wherever it reads shared memory it did not write. For checks."""
+    import torch
+
+    lib = load_kernels()
+    check(lib, lib.vct_fill_shared(value, torch.cuda.current_stream().cuda_stream),
+          "vct_fill_shared")

@@ -10,9 +10,10 @@ Port of ``vct/ops/lstm_pallas.py``:
   in one launch, the inter-layer projections ``y @ W_ih[l+1] + b_ih[l+1]``
   included.
 
-All four launch one CUDA kernel, ``vct_torch/csrc/lstm.cu`` (K5 is its
-``L = 1`` case); its note says what bounds it on the H100 (the chain of
-``T * L`` dependent steps) and how its design meets that. Weights keep
+All four launch ``vct_torch/csrc/lstm.cu`` (K5 is its ``L = 1`` case); its
+note says what bounds it on the H100 (the chain of ``T * L`` dependent
+steps) and how its two designs meet that: "registers" for ``H <= 64``,
+"columns" above. ``design`` says which one a shape takes. Weights keep
 ``vct``'s ``(in, G*H)`` layout; gate orders are torch's, [i, f, g, o] and
 [r, z, n], with GRU's ``n = tanh(x_n + r * (h @ W_hn + b_hn))``. Forward
 only: the backward comes with the training slice.
@@ -30,8 +31,16 @@ from vct_torch.ops import _build
 
 __all__ = [
     "lstm_scan", "gru_scan", "lstm_stack", "gru_stack",
-    "lstm_scan_ref", "gru_scan_ref", "stack_ref",
+    "lstm_scan_ref", "gru_scan_ref", "stack_ref", "design",
 ]
+
+DESIGNS = ("columns", "registers")
+
+
+def design(T: int, H: int, L: int, n_gates: int) -> str:
+    """The kernel design a CUDA launch takes for these shapes, as the
+    kernel library decides it (``vct_rnn_plan``); needs the built library."""
+    return DESIGNS[_build.load_kernels().vct_rnn_plan(T, H, L, n_gates)]
 
 
 def _check_layer(name, n_gates, xp, w_hh, b_hh) -> None:
