@@ -24,7 +24,13 @@ line):
    the identity and an ImageNet mean/std, at (32, 60, 80, 80, 3), an odd
    element count, an unaligned view and C=1;
 6. K3 ``selective_scan`` against ``selective_scan_ref`` on the card:
-   atol = rtol = 1e-5 (f32, summation order and fused multiply-adds);
+   atol = rtol = 1e-5 (f32: h is rounded as the plain version rounds it, y's
+   sum over N runs in another order), both directions, each launch just
+   after NaN was left in every SM's shared memory, each shape printed with
+   its plan (``plan``: states a lane, lanes and warps a channel, state
+   tiles, block threads, chunk steps): the deployed shapes (B=32 and a served B=4), VideoMamba's width
+   (D=2048, N=16, L=256), the sweep's top N=64 at D=32, N = 1, 8, 12, 24,
+   33, 64, 100 at the deployed widths, and L=1;
 7. K2 ``lstm_stack`` / ``gru_stack`` and K5 ``lstm_scan`` / ``gru_scan``
    against their plain versions on the card, TF32 off, atol = rtol = 1e-5,
    each launched just after NaN was left in every SM's shared memory (a
@@ -67,8 +73,14 @@ line):
     ``us_per_step`` (device time over T*L) and cuDNN's ``nn.LSTM`` /
     ``nn.GRU`` time (``library_ms`` by events; ``library_device_ms`` replayed
     from a CUDA graph, or the median of 5 event runs where capture fails,
-    as ``library_device_via`` says), and a line of extra timings at the
-    other shapes. K6 is on no serving path (as in vct): its launches are 0.
+    as ``library_device_via`` says), for K3 its plan, ``us_per_step``
+    (device time over L), ``expf_bound_ms`` (one expf a state and step
+    at the SFUs' rate) and ``launch_ms`` (the launch without the wrapper's
+    checks, by events), and a line of extra timings at the other shapes,
+    with K3's device time under S = 1 and 2, each with the plan's 128-thread
+    blocks and 64-step chunks, 64- or 256-thread blocks, or 32-step chunks,
+    at five shapes (``selective_scan_plans``). K6 is on no serving path (as
+    in vct): its launches are 0.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -88,6 +100,9 @@ import numpy as np
 # non-tensor-core f32 rate, used for the integer and f32 ALU work here.
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+# expf's MUFU.EX2 on the special-function units: 16 a clock per SM (Hopper
+# white paper), 132 SMs at the 1.98 GHz boost clock.
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 
 T, H, W = 60, 80, 80
 
@@ -272,21 +287,35 @@ def _scan_inputs(torch, gen, B, L, D, N):
     return [t.cuda() for t in (u, delta, A, Bm, Cm)]
 
 
+# K3 shapes (B, L, D, N): the bench-shaped batch, a served request
+# (batch_size 4), VideoMamba's width, the sweep's top (rnn_input_size 16:
+# N = hidden = 64), every state size the LRCN's hidden_size can give it
+# (N = 1 to 100, at the deployed widths of a request), and L = 1.
+SCAN_SHAPES = ([(32, T, 16, 32), (4, T, 16, 32), (2, 256, 2048, 16), (32, T, 32, 64)]
+               + [(4, T, 16, n) for n in (1, 8, 12, 24, 33, 64, 100)] + [(4, 1, 16, 32)])
+# K3 shapes timed under other plans: the first four, and N=100 (four warps a channel).
+SCAN_PLAN_SHAPES = SCAN_SHAPES[:4] + [(4, T, 16, 100)]
+
+
 def _check_selective_scan(torch, gen):
-    from vct_torch.ops.selective_scan import selective_scan, selective_scan_ref
+    from vct_torch.ops._build import fill_shared_memory
+    from vct_torch.ops.selective_scan import plan, selective_scan, selective_scan_ref
 
     err = 0.0
-    # bench-shaped batch; a served request (batch_size 4); VideoMamba width
-    for dims in [(32, T, 16, 32), (4, T, 16, 32), (2, 256, 2048, 16)]:
+    for dims in SCAN_SHAPES:
         args = _scan_inputs(torch, gen, *dims)
         for reverse in (False, True):
+            fill_shared_memory(float("nan"))  # a stale read of shared memory fails the check
             got = selective_scan(*args, reverse=reverse)
             want = selective_scan_ref(*args, reverse=reverse)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
             err = max(err, (got - want).abs().max().item())
-    print(f"K3 selective_scan: deployed (B=32, B=4) and D=2048 shapes, fwd and reverse agree; "
-          f"max abs err {err}")
+        B, L, D, N = dims
+        print(f"  selective_scan B={B} L={L} D={D} N={N}: plan {plan(B, D, N)}, "
+              f"max abs err {(got - want).abs().max().item()}")
+    print(f"K3 selective_scan: {len(SCAN_SHAPES)} shapes, fwd and reverse, agree after a NaN "
+          f"fill of shared memory; max abs err {err}")
     return err
 
 
@@ -631,6 +660,10 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
     from vct_torch.ops import lstm as rnn_ops
     from vct_torch.ops.pair_scores import pair_scores, pair_scores_ref
     from vct_torch.ops.preprocess import normalize_frames, normalize_frames_ref
+    from vct_torch.ops.selective_scan import _launch as _scan_launch
+    from vct_torch.ops.selective_scan import decode_plan
+    from vct_torch.ops.selective_scan import plan as scan_plan
+    from vct_torch.ops.selective_scan import plan_code as scan_plan_code
     from vct_torch.ops.selective_scan import selective_scan, selective_scan_ref
     from vct_torch.ops.ssim import ssim_pair_scores, ssim_pair_scores_ref
 
@@ -649,13 +682,37 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
     def k3(B, L, D, N):
         args = _scan_inputs(torch, gen, B, L, D, N)
         bound, by = _bound_ms(4 * (3 * B * L * D + 2 * B * L * N + D * N), 7 * B * L * D * N)
+        device_ms = _graph_ms(torch, lambda: selective_scan(*args), 20)
+        code = scan_plan_code(B, D, N)
         return {
-            "shape": [B, L, D, N],
+            "shape": [B, L, D, N], "plan": scan_plan(B, D, N),
             "ms": _events_ms(torch, lambda: selective_scan(*args), 20),
-            "device_ms": _graph_ms(torch, lambda: selective_scan(*args), 20),
+            # the wrapper's part of ms: the same launch without its checks and count
+            "launch_ms": _events_ms(torch, lambda: _scan_launch(*args, False, code), 20),
+            "device_ms": device_ms, "us_per_step": device_ms / L * 1e3,
             "plain_ms": _events_ms(torch, lambda: selective_scan_ref(*args), 3),
             "bound_ms": bound, "bound_by": by,
+            # one expf a state and step, on the SFUs' MUFU.EX2 (16 a clock per SM)
+            "expf_bound_ms": B * L * D * N / SFU_EXP_PER_S * 1e3,
         }
+
+    def k3_plans(B, L, D, N):
+        """Device time of the kernel under each S, with the plan's blocks and
+        chunks and with 64- and 256-thread blocks and 32-step chunks, against
+        the plan's choice; each checked against the plain version first."""
+        args = _scan_inputs(torch, gen, B, L, D, N)
+        want = selective_scan_ref(*args)
+        times = {}
+        for S in (1, 2):
+            for threads, chunk in ((0, 0), (64, 0), (256, 0), (0, 32)):
+                code = scan_plan_code(B, D, N, S, threads, chunk)
+                p = decode_plan(code, N)
+                got = _scan_launch(*args, False, code)
+                torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+                key = (f"S{S}_lanes{p['lanes_per_channel']}_T{p['block_threads']}"
+                       f"_C{p['chunk_steps']}")
+                times[key] = _graph_ms(torch, lambda: _scan_launch(*args, False, code), 20)
+        return {"shape": [B, L, D, N], "plan": scan_plan(B, D, N), "device_ms": times}
 
     def k4(B, L):
         x = torch.randint(0, 256, (B, L, H, W, 3), dtype=torch.uint8, generator=gen).cuda()
@@ -697,7 +754,9 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
          "launches": launches["selective_scan"], "max_abs_err": errs["selective_scan"],
          "ms": t3["ms"], "plain_ms": t3["plain_ms"], "bound_ms": t3["bound_ms"],
          "bound_by": t3["bound_by"], "library_ms": None,
-         "device_ms": t3["device_ms"], "shape": t3["shape"]},
+         "device_ms": t3["device_ms"], "shape": t3["shape"], "plan": t3["plan"],
+         "us_per_step": t3["us_per_step"], "expf_bound_ms": t3["expf_bound_ms"],
+         "launch_ms": t3["launch_ms"]},
         {"name": "ssim_pair_scores", "route": "cuda", "source": "vct_torch/csrc/ssim.cu",
          "replaces": "vct/ops/ssim_pallas.py:156", "launches": launches["ssim_pair_scores"],
          "max_abs_err": errs["ssim_pair_scores"], "ms": t4["ms"], "plain_ms": t4["plain_ms"],
@@ -724,7 +783,10 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
         "pair_scores_B1_L120_sad": k1(1, 2 * T),
         "pair_scores_B32_L120_flow": k1(32, 2 * T, "flow"),
         "ssim_pair_scores_B1_L120": k4(1, 2 * T),
+        "selective_scan_B4_served": k3(4, T, 16, 32),
         "selective_scan_D2048_N16": k3(2, 256, 2048, 16),
+        "selective_scan_N64": k3(32, T, 32, 64),
+        "selective_scan_plans": [k3_plans(*dims) for dims in SCAN_PLAN_SHAPES],
         "lstm_stack_B4_served": _rnn_timing(torch, gen, rnn_ops, "lstm", "stack", 4, T_UCF50, 56, 4),
         "gru_stack_B4_served": _rnn_timing(torch, gen, rnn_ops, "gru", "stack", 4, T_UCF50, 56, 4),
         "lstm_stack_H64_L4": _rnn_timing(torch, gen, rnn_ops, "lstm", "stack", 32, T_UCF50, 64, 4),

@@ -11,8 +11,9 @@ atol 2e-6 (vct's own tolerance; the kernel repeats the plain version's f32
 operations unfused and sums in f64, so it is expected bit-equal); the frame
 normalize exact; the selective scan and the LSTM/GRU recurrences
 atol = rtol = 1e-5 (f32, summation order and fused multiply-adds; each
-LSTM/GRU shape also asserts which kernel design it takes); logits
-atol = rtol = 1e-4 with TF32 off.
+LSTM/GRU shape also asserts which kernel design it takes, and the scan's
+cases run after NaN was left in shared memory); logits atol = rtol = 1e-4
+with TF32 off.
 """
 
 import numpy as np
@@ -26,6 +27,7 @@ from vct_torch.ops import _build
 from vct_torch.ops import lstm as rnn_ops
 from vct_torch.ops.pair_scores import pair_scores, pair_scores_ref
 from vct_torch.ops.preprocess import normalize_frames, normalize_frames_ref
+from vct_torch.ops import selective_scan as scan_ops
 from vct_torch.ops.selective_scan import selective_scan, selective_scan_ref
 from vct_torch.ops.ssim import ssim_pair_scores, ssim_pair_scores_ref
 from vct_torch.serve.deployment import classify_videos, sample_decoded_clips
@@ -104,6 +106,106 @@ def test_selective_scan_kernel_matches_plain(cuda_device, dims, reverse):
     want = selective_scan_ref(*args, reverse=reverse)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def _scan_args(B, L, D, N, device, seed=0):
+    rng = np.random.RandomState(seed)
+    args = [
+        rng.randn(B, L, D), np.abs(rng.randn(B, L, D)) * 0.5, -np.abs(rng.randn(D, N)),
+        rng.randn(B, L, N), rng.randn(B, L, N),
+    ]
+    return [torch.tensor(a, dtype=torch.float32, device=device) for a in args]
+
+
+def _check_scan_after_nan_fill(args, reverse, code=None):
+    """The kernel, launched just after NaN was left in every SM's shared
+    memory, against the plain version: under the plan's choice through
+    ``selective_scan`` (one counted launch), or under the packed plan
+    ``code``."""
+    before = selective_scan.launches
+    _build.fill_shared_memory(float("nan"))
+    if code is None:
+        got = selective_scan(*args, reverse=reverse)
+        assert selective_scan.launches == before + 1
+    else:
+        got = scan_ops._launch(*args, reverse, code)
+    want = selective_scan_ref(*args, reverse=reverse)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("N", [1, 8, 12, 24, 32, 33, 64, 100])
+def test_selective_scan_kernel_takes_every_state_size(cuda_device, N, B, reverse):
+    """Every N the LRCN's hidden_size can give the scan (the sweep draws 8 to
+    64), past one warp (33, 64) and past 32 lanes of 2 states (100), at the
+    deployed widths."""
+    _check_scan_after_nan_fill(_scan_args(B, 60, 16, N, cuda_device), reverse)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dims", [(2, 256, 2048, 16), (3, 1, 16, 32), (1, 300, 6, 20),
+                                  (1, 40, 3, 300)],
+                         ids=["videomamba", "L1", "L300_chunks", "N300_tiles"])
+def test_selective_scan_kernel_edge_shapes(cuda_device, dims, reverse):
+    """VideoMamba's width (double-buffered time chunks), one step, L past
+    one chunk at a small width, and N past one state tile."""
+    _check_scan_after_nan_fill(_scan_args(*dims, cuda_device), reverse)
+
+
+# (S, lanes) of every kernel instance: S states a lane, lanes a channel
+# (a power of two up to a warp; 64 and 96: two and three warps a channel).
+_SCAN_PLANS = [(S, lanes) for S in (1, 2) for lanes in (1, 2, 4, 8, 16, 32, 64, 96)]
+
+
+@pytest.mark.parametrize("S,lanes", _SCAN_PLANS)
+def test_selective_scan_kernel_under_every_plan(cuda_device, S, lanes):
+    """Each instance, forced, where N needs several state tiles (fewer
+    lanes * S than N) or masks lanes past N, at an odd width (scalar
+    copies) and over L = 37 (a padded group of steps)."""
+    N = 12 if lanes < 64 else 130
+    code = S | lanes << 4 | (128 // 64) << 16 | (64 // 32) << 20  # 128 threads, 64-step chunks
+    assert scan_ops.decode_plan(code, N)["state_tiles"] == -(-N // (lanes * S))
+    for reverse in (False, True):
+        _check_scan_after_nan_fill(_scan_args(2, 37, 6, N, cuda_device), reverse, code)
+
+
+@pytest.mark.parametrize("threads,chunk", [(64, 0), (256, 0), (0, 32), (256, 32), (64, 256)])
+@pytest.mark.parametrize("dims", [(3, 130, 20, 32), (2, 70, 5, 100)], ids=["lanes32", "lanes128"])
+def test_selective_scan_kernel_under_other_blocks_and_chunks(cuda_device, dims, threads, chunk):
+    """The block sizes and chunk lengths chip_smoke times beside the plan's,
+    forced, where a block holds channels past D and L takes several chunks
+    (or, at 256, one)."""
+    B, L, D, N = dims
+    code = scan_ops.plan_code(B, D, N, 0, threads, chunk)
+    got = scan_ops.decode_plan(code, N)
+    assert got["block_threads"] == (threads or 128) and got["chunk_steps"] == (chunk or 64)
+    for reverse in (False, True):
+        _check_scan_after_nan_fill(_scan_args(*dims, cuda_device), reverse, code)
+
+
+@pytest.mark.parametrize("S,threads,chunk", [(4, 0, 0), (3, 0, 0), (0, 96, 0), (0, 512, 0),
+                                             (0, 0, 40), (0, 0, 288)])
+def test_selective_scan_plan_refuses_what_the_kernel_does_not_take(cuda_device, S, threads,
+                                                                   chunk):
+    with pytest.raises(ValueError, match="no plan"):
+        scan_ops.plan_code(4, 16, 32, S, threads, chunk)
+
+
+@pytest.mark.parametrize("dims,S,lanes", [((32, 16, 32), 1, 32), ((4, 16, 32), 1, 32),
+                                          ((2, 2048, 16), 2, 8), ((32, 32, 64), 2, 32),
+                                          ((4, 16, 100), 1, 128)],
+                         ids=["deployed", "served", "videomamba", "N64", "N100"])
+def test_selective_scan_plan_spreads_states_as_documented(cuda_device, dims, S, lanes):
+    """(B, D, N): one state a lane at the deployed shapes (a warp a channel),
+    two at VideoMamba's (8 lanes a channel) and at the sweep's top N=64, and
+    four warps a channel at N=100 with few channels (the plan fills the card
+    before it saves lanes); 128-thread blocks and 64-step chunks."""
+    got = scan_ops.plan(*dims)
+    assert (got["states_per_lane"], got["lanes_per_channel"]) == (S, lanes)
+    assert got["warps_per_channel"] == max(1, lanes // 32) and got["state_tiles"] == 1
+    assert (got["block_threads"], got["chunk_steps"]) == (128, 64)
 
 
 def _rnn_args(n_gates, B, T, H, L, device, seed=0):
@@ -213,8 +315,14 @@ def test_kernel_wrappers_refuse_what_they_cannot_take(cuda_device):
         -torch.rand(8, 12, device=cuda_device), torch.rand(2, 5, 12, device=cuda_device),
         torch.rand(2, 5, 12, device=cuda_device),
     ]
-    with pytest.raises(ValueError, match="N="):
-        selective_scan(*args)
+    torch.testing.assert_close(selective_scan(*args), selective_scan_ref(*args),
+                               atol=1e-5, rtol=1e-5)  # N=12: every N runs
+    with pytest.raises(TypeError):
+        selective_scan(*[a.double() for a in args])
+    with pytest.raises(ValueError, match="contiguous"):
+        selective_scan(args[0], args[1], args[2].t().contiguous().t(), *args[3:])
+    with pytest.raises(ValueError, match="is on"):
+        selective_scan(*args[:4], args[4].cpu())
     xp, w_hh, b_hh, w_ih, b_ih = _rnn_args(4, 2, 3, 8, 2, cuda_device)
     with pytest.raises(TypeError):
         rnn_ops.lstm_scan(xp.double(), w_hh[0].double(), b_hh[0].double())
@@ -243,6 +351,25 @@ def test_small_serving_path_goes_through_the_kernels(cuda_device):
     idx_cpu = preprocess.sample_indices(torch.from_numpy(_clips((2, 12, 16, 16, 3))), T, "sad")
     idx_gpu = preprocess.sample_indices(torch.from_numpy(_clips((2, 12, 16, 16, 3))).to(cuda_device), T, "sad")
     assert torch.equal(idx_cpu, idx_gpu.cpu())
+
+
+def test_mamba_hidden_24_serves_through_the_kernel(cuda_device):
+    """A Mamba LRCN of hidden_size 24 (so n_state = 24, a state size the
+    kernel once refused) serves through K3; logits match the CPU's."""
+    T = 4
+    cfg = ModelConfig(num_classes=3, cnn_backbone="resnet18", rnn_input_size=8, hidden_size=24,
+                      scan_impl="pallas")
+    model = build_model(cfg, T, seed=0)
+    videos = [_clips((n, 16, 16, 3), seed=n) for n in (3, 7, 12)]
+    selective_scan.launches = 0
+    clips = sample_decoded_clips(videos, "sad", T)
+    probs = classify_videos(model, clips, batch_size=2)
+    assert selective_scan.launches == 2 * cfg.rnn_layer  # two forwards
+    assert probs.shape == (3, 3) and np.isfinite(probs).all()
+    with torch.inference_mode():
+        want = model.to("cpu")(clips.cpu())
+        got = model.to(cuda_device)(clips)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("rnn_type,bidirectional", [("lstm", False), ("gru", True)])

@@ -18,7 +18,7 @@ import torch
 from vct.ops.pair_scores_pallas import pair_scores as vct_pair_scores
 from vct.ops.selective_scan_pallas import selective_scan_pallas as vct_selective_scan
 from vct_torch.ops.pair_scores import pair_scores
-from vct_torch.ops.selective_scan import selective_scan
+from vct_torch.ops.selective_scan import decode_plan, selective_scan
 
 # (B, L, H, W, C): L=2, the kernel-audit geometries (odd H, C=1, L crossing
 # vct's 16-transition chunk), and odd H*W*C.
@@ -95,7 +95,11 @@ def _scan_inputs(B, L, D, N, seed=0):
 
 
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("dims", [(2, 12, 8, 4), (2, 9, 16, 32)], ids=["small", "deployed_widths"])
+@pytest.mark.parametrize("dims", [(2, 12, 8, 4), (2, 9, 16, 32), (2, 9, 16, 1), (2, 9, 16, 24),
+                                  (2, 9, 16, 64), (2, 9, 16, 12), (2, 9, 16, 33),
+                                  (2, 9, 16, 100)],
+                         ids=["small", "deployed_widths", "N1", "N24", "N64", "N12", "N33",
+                              "N100"])
 def test_selective_scan_matches_vct(dims, reverse):
     args = _scan_inputs(*dims)
     want = np.asarray(vct_selective_scan(*map(jnp.asarray, args), reverse=reverse))
@@ -109,3 +113,19 @@ def test_selective_scan_rejects_bad_shapes():
         selective_scan(u, delta, A[:4], B, C)
     with pytest.raises(ValueError):
         selective_scan(u, delta, A, B[:, :3], C)
+
+
+@pytest.mark.parametrize("code,N,want", [
+    (1 | 32 << 4 | 2 << 16 | 2 << 20, 32, (1, 32, 1, 1, 128, 64)),
+    (2 | 8 << 4 | 2 << 16 | 2 << 20, 16, (2, 8, 1, 1, 128, 64)),
+    (1 | 128 << 4 | 2 << 16 | 2 << 20, 100, (1, 128, 4, 1, 128, 64)),
+    (1 | 256 << 4 | 2 << 16 | 2 << 20, 300, (1, 256, 8, 2, 128, 64)),
+    (2 | 32 << 4 | 4 << 16 | 1 << 20, 64, (2, 32, 1, 1, 256, 32)),
+    (1 | 16 << 4 | 1 << 16 | 8 << 20, 12, (1, 16, 1, 1, 64, 256)),
+])
+def test_decode_plan_reads_the_packed_plan(code, N, want):
+    """The kernel library packs a plan as S | lanes << 4 | threads / 64 << 16
+    | chunk / 32 << 20."""
+    p = decode_plan(code, N)
+    assert (p["states_per_lane"], p["lanes_per_channel"], p["warps_per_channel"],
+            p["state_tiles"], p["block_threads"], p["chunk_steps"]) == want

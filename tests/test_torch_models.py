@@ -166,6 +166,18 @@ def test_lrcn_logits_match_vct(rnn_out, classif_mode):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+@pytest.mark.parametrize("rnn_out", ["all", "last"])
+def test_mamba_lrcn_of_hidden_24_matches_vct(rnn_out):
+    """n_state = hidden_size = 24, a state size the K3 kernel once refused;
+    vct runs its Pallas scan in interpret mode, the port its plain version."""
+    flax_model, torch_model = _lrcn_pair(rnn_out=rnn_out, hidden_size=24)
+    assert torch_model.mamba_0.mixer.n_state == 24
+    x = np.random.RandomState(0).rand(2, 8, 32, 32, 3).astype(np.float32)
+    got, want = _run_pair(flax_model, torch_model, x)
+    assert got.shape == (2, 4)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 def test_lrcn_features_only_and_from_features():
     flax_model, torch_model = _lrcn_pair(seq_len=4, use_adapt_dsl=True)
     x = np.random.RandomState(0).rand(2, 4, 32, 32, 3).astype(np.float32)

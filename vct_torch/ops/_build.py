@@ -101,8 +101,10 @@ def _declare(lib) -> None:
     lib.vct_ssim_pair_scores.restype = i
     lib.vct_normalize_frames.argtypes = [p, p, ll, i, p, p, f, p]
     lib.vct_normalize_frames.restype = i
-    lib.vct_selective_scan_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.vct_selective_scan_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.vct_selective_scan_fwd.restype = i
+    lib.vct_scan_plan.argtypes = [i, i, i, i, i, i]
+    lib.vct_scan_plan.restype = i
     lib.vct_rnn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.vct_rnn_fwd.restype = i
     lib.vct_rnn_plan.argtypes = [i, i, i, i]

@@ -3,9 +3,10 @@
 Port of ``vct/ops/selective_scan_pallas.py::selective_scan_pallas`` (the TPU
 kernel ``_scan_kernel``). The CUDA kernel is
 ``vct_torch/csrc/selective_scan.cu``; its note says what bounds it on the
-H100 (the L-step dependency chain and launch latency at the serving shape)
-and how its design meets that. Forward only: the backward comes with the
-training slice.
+H100 (the L-step chain and the launch at the deployed shape, the expf rate
+at VideoMamba's) and how its design meets that: a channel's states spread
+across lanes, S states a lane, by a plan chosen from the shapes
+(``plan``). Any N. Forward only: the backward comes with the training slice.
 
 ``selective_scan`` dispatches by device: a CPU tensor goes to the plain
 PyTorch version ``selective_scan_ref``, a CUDA tensor to the kernel.
@@ -13,13 +14,14 @@ PyTorch version ``selective_scan_ref``, a CUDA tensor to the kernel.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from vct_torch.ops import _build
 
-__all__ = ["selective_scan", "selective_scan_ref", "KERNEL_N_STATES"]
+__all__ = ["plan", "selective_scan", "selective_scan_ref"]
 
-KERNEL_N_STATES = (16, 32)  # the kernel's template instances
 _MAX_GRID_Y = 65535
 
 
@@ -64,11 +66,65 @@ def selective_scan_ref(u, delta, A, B, C, reverse: bool = False) -> torch.Tensor
     return y
 
 
+def decode_plan(code: int, N: int) -> dict:
+    """A plan as ``vct_scan_plan`` packs it (S | lanes << 4 | threads / 64 <<
+    16 | chunk / 32 << 20), with the state tiles it walks for N states."""
+    S, lanes = code & 15, (code >> 4) & 4095
+    return {
+        "states_per_lane": S,
+        "lanes_per_channel": lanes,
+        "warps_per_channel": max(1, lanes // 32),
+        "state_tiles": max(1, -(-N // (lanes * S))),
+        "block_threads": (code >> 16 & 15) * 64,
+        "chunk_steps": (code >> 20 & 15) * 32,
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def plan_code(batch: int, D: int, N: int, states_per_lane: int = 0, block_threads: int = 0,
+              chunk_steps: int = 0) -> int:
+    """The packed plan the kernel library gives a batch of D channels of N
+    states (decided by these shapes alone, so kept per shape); needs the
+    built library. Each option at 0 is the library's choice, else it forces
+    S = ``states_per_lane`` (1 or 2), blocks of ``block_threads`` (64, 128
+    or 256) or chunks of at most ``chunk_steps`` (a multiple of 32 up to
+    256), for timing one plan against another."""
+    code = _build.load_kernels().vct_scan_plan(batch, D, N, states_per_lane, block_threads,
+                                               chunk_steps)
+    if code < 0:
+        raise ValueError(f"selective_scan: no plan with S={states_per_lane}, "
+                         f"{block_threads} threads, chunks of {chunk_steps}")
+    return code
+
+
+def plan(batch: int, D: int, N: int) -> dict:
+    """How a CUDA launch spreads each of a batch of D channels' N states:
+    states a lane, lanes and warps a channel, state tiles, the block's
+    threads and the most steps a chunk, as the kernel library decides it
+    (``vct_scan_plan``)."""
+    return decode_plan(plan_code(batch, D, N), N)
+
+
+def _launch(u, delta, A, B, C, reverse: bool, code: int) -> torch.Tensor:
+    """The kernel under the packed plan ``code``, no checks, no count."""
+    batch, L, D = u.shape
+    y = torch.empty_like(u)
+    lib = _build.load_kernels()
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.vct_selective_scan_fwd(
+            u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+            y.data_ptr(), batch, L, D, A.shape[1], int(reverse), code, stream,
+        )
+    _build.check(lib, err, "selective_scan kernel launch")
+    return y
+
+
 def selective_scan(u, delta, A, B, C, reverse: bool = False) -> torch.Tensor:
     """Drop-in for ``vct_torch.models.ssm.selective_scan`` (impl='pallas').
 
-    On CUDA every input must be f32 and contiguous, and N one of
-    ``KERNEL_N_STATES``; the kernel runs or this raises.
+    On CUDA every input must be f32, contiguous and on u's device, and batch
+    at most 65535; the kernel runs under ``plan``'s choice, or this raises.
     """
     _validate(u, delta, A, B, C)
     if u.device.type == "cpu":
@@ -84,24 +140,11 @@ def selective_scan(u, delta, A, B, C, reverse: bool = False) -> torch.Tensor:
         if not t.is_contiguous():
             raise ValueError(f"the selective_scan kernel takes contiguous tensors, {name} is not")
     batch, L, D = u.shape
-    N = A.shape[1]
-    if N not in KERNEL_N_STATES:
-        raise ValueError(
-            f"the selective_scan kernel has instances for N in {KERNEL_N_STATES}, got N={N}"
-        )
     if batch > _MAX_GRID_Y:
         raise ValueError(f"the selective_scan kernel takes batch <= {_MAX_GRID_Y}, got {batch}")
-    y = torch.empty_like(u)
-    if y.numel() == 0:
-        return y
-    lib = _build.load_kernels()
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vct_selective_scan_fwd(
-            u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), batch, L, D, N, int(reverse), stream,
-        )
-    _build.check(lib, err, "selective_scan kernel launch")
+    if u.numel() == 0:
+        return torch.empty_like(u)
+    y = _launch(u, delta, A, B, C, reverse, plan_code(batch, D, A.shape[1]))
     selective_scan.launches += 1
     return y
 

@@ -38,7 +38,7 @@ _GROUPS = (
     ("ssim_pair_scores (K4)", ("ssim_pair_kernel",)),
     ("normalize_frames (K6)", ("normalize_frames",)),
     ("pair_scores (K1)", ("pair_scores_kernel",)),
-    ("selective_scan (K3)", ("selective_scan_fwd_kernel",)),
+    ("selective_scan (K3)", ("selective_scan_kernel",)),
     ("lstm / gru (K2, K5)", ("rnn_reg_kernel", "rnn_stack_kernel")),
     ("conv / gemm", ("conv", "xmma", "gemm", "cutlass", "implicit", "sm90_")),
     ("batch_norm", ("batch_norm", "bn_fw", "batchnorm")),
