@@ -14,12 +14,20 @@ line):
    kernel's registers, stack frame and spills are printed;
 3. K1 ``pair_scores`` against ``pair_scores_ref`` on the card: SAD
    bit-exact, flow rtol 1e-6 (both sum exactly in integers);
-4. K4 ``ssim_pair_scores`` against ``ssim_pair_scores_ref`` on the card:
-   atol 2e-6 (vct's tolerance; expected bit-equal: the window sums are
-   exact, the f32 operations unfused and in the same order, the mean summed
-   in f64), at the bench shape, both served buckets, L=2, the kernel-audit
-   geometries, the smallest 3x3 frame, an unaligned view and all-equal
-   frames, which must score exactly 1.0;
+4. K4 ``ssim_pair_scores`` against ``ssim_pair_scores_ref`` on the card,
+   each launch just after NaN was left in every SM's shared memory, each
+   shape printed with its plan (``plan``: transitions a chunk, output rows
+   a band, threads, blocks): atol 2e-6 (vct's tolerance) and bit-equal in
+   every case (the window sums are exact, the f32 operations unfused and in
+   the same order up to exact scalings by two, the mean summed in f64), at
+   the bench shape, both served buckets, L=2, the kernel-audit geometries,
+   the smallest 3x3 frame, H=3, L-1 and H-2 prime, row lengths 132, 258
+   and 5 and an unaligned view (the byte path), a row of 384 bytes (two
+   column groups), rows at decoded widths (320, 3840 and, on the byte
+   path, 426 pixels: 4, 45 and 5 column groups), forced plans whose chunks
+   and bands do not divide the clip, and all-equal frames, which must score
+   exactly 1.0; then three CUDA-graph replays of a served bucket, each
+   bit-equal;
 5. K6 ``normalize_frames`` against ``normalize_frames_ref``: bit-exact, for
    the identity and an ImageNet mean/std, at (32, 60, 80, 80, 3), an odd
    element count, an unaligned view and C=1;
@@ -79,8 +87,14 @@ line):
     checks, by events), and a line of extra timings at the other shapes,
     with K3's device time under S = 1 and 2, each with the plan's 128-thread
     blocks and 64-step chunks, 64- or 256-thread blocks, or 32-step chunks,
-    at five shapes (``selective_scan_plans``). K6 is on no serving path (as
-    in vct): its launches are 0.
+    at five shapes (``selective_scan_plans``), and K4's device time under
+    its plan and, for each K, the two band heights whose block counts lie
+    either side of two an SM, each checked bit-equal first, at the three
+    main-path shapes and one decoded 320x240 video
+    (``ssim_pair_scores_plans``). K6 is on no serving path (as in vct): its
+    launches are 0. ``_k4_timing`` uses only the public K4 names, so it can
+    time an older checkout's kernel too (load this file by its path from
+    that checkout's root).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -109,8 +123,18 @@ T, H, W = 60, 80, 80
 # The deployed config (bench.py VCT_BENCH_MODEL=mamba), with the kernels' scan_impl.
 DEPLOYED = dict(cnn_backbone="resnet50", rnn_type="mamba", rnn_input_size=8, rnn_layer=3,
                 scan_impl="pallas")
-# ALU operations per valid output element of K4, as counted in vct_torch/csrc/ssim.cu.
-SSIM_OPS_PER_ELEMENT = 56
+# K4's least work in instructions, as counted in vct_torch/csrc/ssim.cu's
+# note: per element of a frame (each frame's window sums formed once) and per
+# valid (pair, element), plus one reciprocal per (pair, element).
+SSIM_FRAME_INSTRUCTIONS = 11
+SSIM_PAIR_INSTRUCTIONS = 17
+# Instruction issue: 128 a clock per SM (four schedulers of 32 lanes), 132
+# SMs at the 1.98 GHz boost clock of SFU_EXP_PER_S; MUFU.RCP on the 16-a-clock pipe.
+ISSUE_PER_S = 128 * 132 * 1.98e9
+SFU_RCP_PER_S = SFU_EXP_PER_S
+# K4's plans are timed at the main-path shapes and one decoded 320x240 video.
+SSIM_PLAN_SHAPES = [(32, 2 * T, H, W, 3), (1, 2 * T, H, W, 3), (1, 4 * T, H, W, 3),
+                    (1, 2 * T, 240, 320, 3)]
 
 # The UCF50 geometry bench.py times by default, with the kernels' scan_impl.
 T_UCF50 = 40
@@ -151,6 +175,22 @@ def _ptxas_lines(log: str) -> list[str]:
 def _bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ALU_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _ssim_bound_ms(B: int, L: int, H_: int, W_: int, C: int) -> tuple[float, str]:
+    """K4's least time: the larger of its bytes over the memory rate, its
+    instructions over the issue rate and its reciprocals over the MUFU rate.
+    Every input byte read once and each f32 score written once; each frame's
+    window sums formed once (SSIM_FRAME_INSTRUCTIONS per element of every
+    frame), the rest per pair. Instructions are the unit counted, and the
+    bound is named "operations" as the kernels line names every count."""
+    frame_elems = (H_ - 2) * (W_ - 2) * C
+    n_bytes = B * L * H_ * W_ * C + B * (L - 1) * 4
+    n_instr = (SSIM_FRAME_INSTRUCTIONS * B * L + SSIM_PAIR_INSTRUCTIONS * B * (L - 1)) * frame_elems
+    t_bytes, t_instr = n_bytes / HBM_BYTES_PER_S, n_instr / ISSUE_PER_S
+    t_rcp = B * (L - 1) * frame_elems / SFU_RCP_PER_S
+    return max(t_bytes, t_instr, t_rcp) * 1e3, ("bytes" if t_bytes >= max(t_instr, t_rcp)
+                                                 else "operations")
 
 
 def _events_ms(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -217,8 +257,57 @@ def _check_pair_scores(torch, gen):
     return err
 
 
+def _k4_timing(torch, gen, B: int, L: int, H_: int = H, W_: int = W) -> dict:
+    """K4 on (B, L, H_, W_, 3) random frames: its plan, time by events and
+    from a CUDA graph, the plain version's time and the bound. Only the
+    public names of ``vct_torch.ops.ssim``, so an older package (one with
+    no ``plan``) is timed the same way."""
+    from vct_torch.ops import ssim
+
+    x = torch.randint(0, 256, (B, L, H_, W_, 3), dtype=torch.uint8, generator=gen).cuda()
+    bound, by = _ssim_bound_ms(B, L, H_, W_, 3)
+    return {
+        "shape": [B, L, H_, W_, 3],
+        "plan": ssim.plan(B, L, H_, W_, 3) if hasattr(ssim, "plan") else None,
+        "ms": _events_ms(torch, lambda: ssim.ssim_pair_scores(x), 20),
+        "device_ms": _graph_ms(torch, lambda: ssim.ssim_pair_scores(x), 20),
+        "plain_ms": _events_ms(torch, lambda: ssim.ssim_pair_scores_ref(x), 3, warmup=1),
+        "bound_ms": bound, "bound_by": by, "bound_counts": "instructions",
+    }
+
+
+def _k4_plans(torch, gen, B: int, L: int, H_: int, W_: int, C: int) -> dict:
+    """K4's device time under the plan's choice and, for each K, the two
+    band heights R whose block counts lie either side of RESIDENT_BLOCKS
+    (two an SM; at the bench shape the whole frame and half of it), each
+    checked bit-equal to the plain version first."""
+    from vct_torch.ops.ssim import (MAX_CHUNK_PAIRS, RESIDENT_BLOCKS, _constants, _launch, plan,
+                                    ssim_pair_scores_ref)
+
+    x = torch.randint(0, 256, (B, L, H_, W_, C), dtype=torch.uint8, generator=gen).cuda()
+    want, constants = ssim_pair_scores_ref(x), _constants(3, 255.0)
+    chosen = plan(B, L, H_, W_, C)
+    heights = sorted({-(-(H_ - 2) // n) for n in range(1, H_ - 1)}, reverse=True)
+    plans = {(chosen["chunk_pairs"], chosen["band_rows"])}
+    for K in range(1, MAX_CHUNK_PAIRS + 1):
+        blocks = [(R, B * -(-(L - 1) // K) * -(-(H_ - 2) // R)) for R in heights]
+        below = [R for R, n in blocks if n < RESIDENT_BLOCKS]
+        above = [R for R, n in blocks if n >= RESIDENT_BLOCKS]
+        plans.update((K, R) for R in below[-1:] + above[:1 if below else 2])
+    times = {}
+    for K, R in sorted(plans):
+        p = plan(B, L, H_, W_, C, K, R)
+        got = _launch(x, p, constants)
+        if not torch.equal(got, want):
+            raise AssertionError(f"ssim_pair_scores: plan K={K} R={R} not bit-equal")
+        times[f"K{K}_R{R}_blocks{p['blocks']}"] = _graph_ms(torch, lambda: _launch(x, p, constants),
+                                                            20)
+    return {"shape": [B, L, H_, W_, C], "plan": chosen, "device_ms": times}
+
+
 def _check_ssim(torch, gen):
-    from vct_torch.ops.ssim import ssim_pair_scores, ssim_pair_scores_ref
+    from vct_torch.ops import _build
+    from vct_torch.ops.ssim import _constants, _launch, plan, ssim_pair_scores, ssim_pair_scores_ref
 
     shapes = [
         (32, 120, H, W, 3),  # bench-like batch (L = 2T)
@@ -232,24 +321,66 @@ def _check_ssim(torch, gen):
         (2, 21, 16, 48, 1),
         (3, 5, 3, 3, 3),     # the smallest frame
         (3, 13, 7, 5, 1),    # odd H*W*C
+        (1, 30, 3, 80, 3),   # one output row (H=3) in every band
+        (2, 24, 19, 40, 3),  # L-1 and H-2 prime: uneven chunks and bands
+        (2, 9, 12, 132, 1),  # row lengths off 16 bytes: the byte path
+        (2, 9, 12, 258, 1),
+        (2, 9, 12, 5, 1),
+        (1, 6, 9, 128, 3),   # more columns than a block's threads
+        (1, 9, 14, 320, 3),  # decoded widths, as served frames arrive: UCF50's
+        (1, 4, 6, 3840, 3),  # 320, 4K's 3840 and (byte path) 240p's 426 pixels
+        (1, 4, 6, 426, 3),
     ]
-    cases = [(s, torch.randint(0, 256, s, dtype=torch.uint8, generator=gen).cuda()) for s in shapes]
+    cases = [(s, torch.randint(0, 256, s, dtype=torch.uint8, generator=gen).cuda(), None)
+             for s in shapes]
     flat = torch.randint(0, 256, (1 + 2 * 10 * 8 * 8 * 3,), dtype=torch.uint8, generator=gen).cuda()
-    cases.append(("unaligned 2x10x8x8x3", flat[1:].view(2, 10, 8, 8, 3)))
+    cases.append(("unaligned 2x10x8x8x3", flat[1:].view(2, 10, 8, 8, 3), None))
     frame = torch.randint(0, 256, (1, 1, H, W, 3), dtype=torch.uint8, generator=gen).cuda()
     static = frame.expand(4, 30, H, W, 3).contiguous()
-    cases.append(("all-equal 4x30x80x80x3", static))
+    cases.append(("all-equal 4x30x80x80x3", static, None))
+    # Forced plans where chunks and bands do not divide the clip, on both paths.
+    for K, R in ((1, 1), (3, 5), (7, 17)):
+        for shape in ((2, 24, 19, 40, 3), (1, 11, 18, 43, 3)):
+            x = torch.randint(0, 256, shape, dtype=torch.uint8, generator=gen).cuda()
+            cases.append((f"{shape} K={K} R={R}", x, plan(*shape, K, R)))
     err, equal = 0.0, 0
-    for name, x in cases:
-        got, want = ssim_pair_scores(x), ssim_pair_scores_ref(x)
+    for name, x, forced in cases:
+        _build.fill_shared_memory(float("nan"))  # a stale read of shared memory fails the check
+        got = ssim_pair_scores(x) if forced is None else _launch(x, forced, _constants(3, 255.0))
+        want = ssim_pair_scores_ref(x)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, atol=2e-6, rtol=0, msg=f"ssim_pair_scores {name}")
         err = max(err, (got - want).abs().max().item())
         equal += int(torch.equal(got, want))
+        p = plan(*x.shape) if forced is None else forced
+        print(f"  K4 {name}: plan K={p['chunk_pairs']} R={p['band_rows']} "
+              f"threads={p['threads']} blocks={p['blocks']}")
+    if equal != len(cases):
+        raise AssertionError(f"ssim_pair_scores: bit-equal in {equal} of {len(cases)} only")
+    _build.fill_shared_memory(float("nan"))
     if not torch.equal(ssim_pair_scores(static), torch.ones((4, 29), device=static.device)):
         raise AssertionError("ssim_pair_scores: all-equal frames do not score exactly 1.0")
-    print(f"K4 ssim_pair_scores: {len(cases)} shapes agree within 2e-6, bit-equal in {equal}; "
-          f"all-equal frames score exactly 1.0; max abs err {err}")
+    # A CUDA graph replays the launch with its (clip, chunk) counters as the
+    # last replay left them: every replay must give the same scores.
+    x = cases[1][1]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ssim_pair_scores(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = ssim_pair_scores(x)
+    replays = []
+    for _ in range(3):
+        graph.replay()
+        replays.append(y.clone())
+    torch.cuda.synchronize()
+    if not all(torch.equal(r, ssim_pair_scores_ref(x)) for r in replays):
+        raise AssertionError("ssim_pair_scores: CUDA graph replays differ from the plain version")
+    print(f"K4 ssim_pair_scores: {len(cases)} shapes and plans agree within 2e-6, bit-equal in "
+          f"{equal} of {len(cases)}, each after a NaN fill of shared memory; all-equal frames "
+          f"score exactly 1.0; 3 graph replays bit-equal; max abs err {err}")
     return err
 
 
@@ -665,7 +796,6 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
     from vct_torch.ops.selective_scan import plan as scan_plan
     from vct_torch.ops.selective_scan import plan_code as scan_plan_code
     from vct_torch.ops.selective_scan import selective_scan, selective_scan_ref
-    from vct_torch.ops.ssim import ssim_pair_scores, ssim_pair_scores_ref
 
     def k1(B, L, method="sad"):
         x = torch.randint(0, 256, (B, L, H, W, 3), dtype=torch.uint8, generator=gen).cuda()
@@ -714,18 +844,6 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
                 times[key] = _graph_ms(torch, lambda: _scan_launch(*args, False, code), 20)
         return {"shape": [B, L, D, N], "plan": scan_plan(B, D, N), "device_ms": times}
 
-    def k4(B, L):
-        x = torch.randint(0, 256, (B, L, H, W, 3), dtype=torch.uint8, generator=gen).cuda()
-        valid = B * (L - 1) * (H - 2) * (W - 2) * 3
-        bound, by = _bound_ms(B * L * H * W * 3 + B * (L - 1) * 4, SSIM_OPS_PER_ELEMENT * valid)
-        return {
-            "shape": [B, L, H, W, 3],
-            "ms": _events_ms(torch, lambda: ssim_pair_scores(x), 20),
-            "device_ms": _graph_ms(torch, lambda: ssim_pair_scores(x), 20),
-            "plain_ms": _events_ms(torch, lambda: ssim_pair_scores_ref(x), 3, warmup=1),
-            "bound_ms": bound, "bound_by": by,
-        }
-
     def k6(shape):
         x = torch.randint(0, 256, shape, dtype=torch.uint8, generator=gen).cuda()
         mean, std = torch.tensor(IMAGENET_MEAN).cuda(), torch.tensor(IMAGENET_STD).cuda()
@@ -742,7 +860,7 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
         }
 
     t1, t3 = k1(32, 2 * T), k3(32, T, 16, 32)
-    t4, t6 = k4(32, 2 * T), k6((32, T, H, W, 3))
+    t4, t6 = _k4_timing(torch, gen, 32, 2 * T), k6((32, T, H, W, 3))
     kernels = [
         {"name": "pair_scores", "route": "cuda", "source": "vct_torch/csrc/pair_scores.cu",
          "replaces": "vct/ops/pair_scores_pallas.py:119", "launches": launches["pair_scores"],
@@ -761,7 +879,8 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
          "replaces": "vct/ops/ssim_pallas.py:156", "launches": launches["ssim_pair_scores"],
          "max_abs_err": errs["ssim_pair_scores"], "ms": t4["ms"], "plain_ms": t4["plain_ms"],
          "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"], "library_ms": None,
-         "device_ms": t4["device_ms"], "shape": t4["shape"]},
+         "bound_counts": t4["bound_counts"], "device_ms": t4["device_ms"], "shape": t4["shape"],
+         "plan": t4["plan"]},
         {"name": "normalize_frames", "route": "cuda", "source": "vct_torch/csrc/normalize.cu",
          "replaces": "vct/ops/preprocess_pallas.py:34", "launches": launches["normalize_frames"],
          "paths": "none: no serving path calls it, as in vct",
@@ -782,7 +901,10 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
     extra = {"extra_timings": {
         "pair_scores_B1_L120_sad": k1(1, 2 * T),
         "pair_scores_B32_L120_flow": k1(32, 2 * T, "flow"),
-        "ssim_pair_scores_B1_L120": k4(1, 2 * T),
+        "ssim_pair_scores_B1_L120": _k4_timing(torch, gen, 1, 2 * T),
+        "ssim_pair_scores_B1_L240": _k4_timing(torch, gen, 1, 4 * T),
+        "ssim_pair_scores_B1_L120_320x240": _k4_timing(torch, gen, 1, 2 * T, 240, 320),
+        "ssim_pair_scores_plans": [_k4_plans(torch, gen, *shape) for shape in SSIM_PLAN_SHAPES],
         "selective_scan_B4_served": k3(4, T, 16, 32),
         "selective_scan_D2048_N16": k3(2, 256, 2048, 16),
         "selective_scan_N64": k3(32, T, 32, 64),

@@ -39,3 +39,20 @@ def test_bound_is_the_larger_of_bytes_and_operations():
     assert by == "bytes" and t == pytest.approx(1.0)
     t, by = chip_smoke._bound_ms(1.0, chip_smoke.ALU_OPS_PER_S * 2e-3)
     assert by == "operations" and t == pytest.approx(2.0)
+
+
+def test_ssim_bound_is_its_instruction_count_over_the_issue_rate():
+    """K4 at the bench step: each frame's window sums formed once (11
+    instructions an element of every frame), 17 more a valid (pair,
+    element), over 128 instructions a clock on 132 SMs at 1.98 GHz; bytes
+    and reciprocals take less. The count is instructions, and the kernels
+    line names its bound "operations", as for every kernel."""
+    B, L, H, W, C = 32, 120, 80, 80, 3
+    elems = (H - 2) * (W - 2) * C
+    instr = (11 * B * L + 17 * B * (L - 1)) * elems
+    assert chip_smoke.ISSUE_PER_S == pytest.approx(33.45e12, rel=1e-3)
+    t, by = chip_smoke._ssim_bound_ms(B, L, H, W, C)
+    assert by == "operations" and t == pytest.approx(instr / chip_smoke.ISSUE_PER_S * 1e3)
+    assert (chip_smoke.SSIM_FRAME_INSTRUCTIONS, chip_smoke.SSIM_PAIR_INSTRUCTIONS) == (11, 17)
+    assert t > (B * L * H * W * C) / chip_smoke.HBM_BYTES_PER_S * 1e3
+    assert t > B * (L - 1) * elems / chip_smoke.SFU_RCP_PER_S * 1e3

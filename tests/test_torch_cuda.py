@@ -7,8 +7,9 @@ the root conftest (it exists for JAX's CPU re-exec):
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 
 Tolerances: SAD and flow exact (both sides sum exactly in integers); SSIM
-atol 2e-6 (vct's own tolerance; the kernel repeats the plain version's f32
-operations unfused and sums in f64, so it is expected bit-equal); the frame
+atol 2e-6 (vct's own tolerance) and, for the cases after a NaN fill of
+shared memory, bit-equal (the kernel repeats the plain version's f32
+operations unfused, up to exact scalings by two, and sums in f64); the frame
 normalize exact; the selective scan and the LSTM/GRU recurrences
 atol = rtol = 1e-5 (f32, summation order and fused multiply-adds; each
 LSTM/GRU shape also asserts which kernel design it takes, and the scan's
@@ -29,6 +30,7 @@ from vct_torch.ops.pair_scores import pair_scores, pair_scores_ref
 from vct_torch.ops.preprocess import normalize_frames, normalize_frames_ref
 from vct_torch.ops import selective_scan as scan_ops
 from vct_torch.ops.selective_scan import selective_scan, selective_scan_ref
+from vct_torch.ops import ssim as ssim_ops
 from vct_torch.ops.ssim import ssim_pair_scores, ssim_pair_scores_ref
 from vct_torch.serve.deployment import classify_videos, sample_decoded_clips
 
@@ -75,6 +77,107 @@ def test_ssim_kernel_matches_plain(cuda_device, shape):
 def test_ssim_kernel_scores_static_clips_one(cuda_device):
     x = torch.from_numpy(np.repeat(_clips((2, 1, 80, 80, 3)), 6, axis=1)).to(cuda_device)
     assert torch.equal(ssim_pair_scores(x), torch.ones((2, 5), device=cuda_device))
+
+
+def _check_ssim_after_nan_fill(x, p=None):
+    """The K4 kernel, launched just after NaN was left in every SM's shared
+    memory, bit-equal to the plain version: under the plan's choice through
+    ``ssim_pair_scores`` (one counted launch), or under the forced plan p."""
+    before = ssim_pair_scores.launches
+    _build.fill_shared_memory(float("nan"))
+    if p is None:
+        got = ssim_pair_scores(x)
+        assert ssim_pair_scores.launches == before + 1
+    else:
+        got = ssim_ops._launch(x, p, ssim_ops._constants(3, 255.0))
+    want = ssim_pair_scores_ref(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("R", [1, 5, 17])
+@pytest.mark.parametrize("K", [1, 3, 7])
+@pytest.mark.parametrize("W,C", [(32, 3), (43, 3)], ids=["vector", "bytes"])
+def test_ssim_kernel_under_forced_plans(cuda_device, K, R, W, C):
+    """Chunks of K of 11 transitions and bands of R of 17 output rows, so the
+    last chunk and band are short (or, at R = H-2, one band), on the
+    16-byte copy path (W*C = 96) and the byte path (W*C = 129)."""
+    x = torch.from_numpy(_clips((2, 12, 19, W, C))).to(cuda_device)
+    p = ssim_ops.plan(2, 12, 19, W, C, K, R)
+    assert (p["chunk_pairs"], p["band_rows"]) == (K, R)
+    _check_ssim_after_nan_fill(x, p)
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 12, 132, 1), (2, 9, 12, 258, 1), (2, 9, 12, 5, 1),
+                                   (4, 19, 80, 80, 3), (2, 5, 3, 16, 1), (1, 6, 9, 128, 3),
+                                   (1, 6, 9, 120, 3), (1, 9, 14, 320, 3), (1, 4, 6, 3840, 3),
+                                   (1, 4, 6, 426, 3)],
+                         ids=["WC132", "WC258", "WC5", "vector", "H3", "wide_vector", "wide_bytes",
+                              "WC960", "WC11520", "WC1278"])
+def test_ssim_kernel_byte_and_vector_paths(cuda_device, shape):
+    """Row lengths off a multiple of 16 bytes take the byte path, the
+    deployed frame (W*C = 240) the vector path, H=3 one output row; rows of
+    384 and 360 bytes, more columns than a block's threads, take two column
+    groups, each staging only the bytes it reads. Frames at their decoded
+    width, 320 (UCF50), 3840 (4K) and 426 pixels (240p, the byte path), take
+    4, 45 and 5 groups in the same shared memory."""
+    _check_ssim_after_nan_fill(torch.from_numpy(_clips(shape)).to(cuda_device))
+
+
+def test_ssim_kernel_unaligned_clips_take_the_byte_path(cuda_device):
+    flat = torch.from_numpy(_clips((1 + 2 * 10 * 8 * 16 * 3,))).to(cuda_device)
+    _check_ssim_after_nan_fill(flat[1:].view(2, 10, 8, 16, 3))
+
+
+@pytest.mark.parametrize("L", [120, 240])
+def test_ssim_kernel_one_served_video(cuda_device, L):
+    """B=1, as the served path calls it: bands and short chunks, the partial
+    sums added by the last block of each chunk."""
+    x = torch.from_numpy(_clips((1, L, 80, 80, 3))).to(cuda_device)
+    assert ssim_ops.plan(1, L, 80, 80, 3)["bands"] > 1
+    _check_ssim_after_nan_fill(x)
+
+
+def test_ssim_kernel_scores_all_equal_frames_exactly_one(cuda_device):
+    x = torch.from_numpy(np.repeat(_clips((3, 1, 80, 80, 3)), 40, axis=1)).to(cuda_device)
+    _build.fill_shared_memory(float("nan"))
+    assert torch.equal(ssim_pair_scores(x), torch.ones((3, 39), device=cuda_device))
+
+
+def test_ssim_kernel_on_two_streams_at_once(cuda_device):
+    """Each stream has its own (clip, chunk) counters, so launches on two
+    streams at once, each cut into bands, do not mix their partial sums."""
+    xs = [torch.from_numpy(_clips((1, L, 80, 80, 3))).to(cuda_device) for L in (120, 240)]
+    wants = [ssim_pair_scores_ref(x) for x in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for i, (s, x) in enumerate(zip(streams, xs)):
+            with torch.cuda.stream(s):
+                outs[i].append(ssim_pair_scores(x))
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, w) for ys, w in zip(outs, wants) for y in ys)
+
+
+def test_ssim_kernel_graph_replays_give_the_same_scores(cuda_device):
+    """The (clip, chunk) counters are reset by the kernel itself, so a CUDA
+    graph replayed twice gives the same, right scores."""
+    x = torch.from_numpy(_clips((1, 120, 80, 80, 3))).to(cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ssim_pair_scores(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = ssim_pair_scores(x)
+    graph.replay()
+    first = y.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, y) and torch.equal(y, ssim_pair_scores_ref(x))
 
 
 @pytest.mark.parametrize("stats", ["identity", "imagenet"])

@@ -33,6 +33,7 @@ from vct.ops.ssim_pallas import ssim_pair_scores as vct_ssim_pair_scores
 from vct_torch.data import samplers
 from vct_torch.data.preprocess import device_sample_clips, preprocess_clips, sample_indices
 from vct_torch.ops.preprocess import normalize_frames, normalize_frames_ref
+from vct_torch.ops import ssim as ssim_ops
 from vct_torch.ops.ssim import ssim_pair_scores, ssim_pair_scores_ref
 
 T = 6
@@ -43,6 +44,9 @@ SSIM_SHAPES = [(2, 11, 16, 43, 3), (1, 5, 9, 11, 3), (3, 4, 8, 128, 1), (2, 6, 8
 # L=2, the kernel-audit geometries (odd H, C=1 with L crossing vct's chunk),
 # the smallest frame.
 MORE_SHAPES = [(2, 2, 5, 7, 3), (1, 9, 11, 44, 3), (2, 21, 16, 48, 1), (2, 4, 3, 3, 3)]
+# The kernel's edges: one output row (H=3), and odd row lengths W*C = 21, 5
+# and 129 (its byte path).
+EDGE_SHAPES = [(2, 5, 3, 7, 3), (3, 6, 7, 5, 1), (1, 4, 5, 43, 3)]
 
 
 def _clips(shape, seed=0):
@@ -63,7 +67,8 @@ def _same_ranking(got, want):
         np.testing.assert_array_equal(np.argsort(g, kind="stable"), np.argsort(w, kind="stable"))
 
 
-@pytest.mark.parametrize("shape", SSIM_SHAPES + MORE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", SSIM_SHAPES + MORE_SHAPES + EDGE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
 def test_ssim_pair_scores_matches_vct(shape):
     x = _clips(shape)
     got = ssim_pair_scores(torch.from_numpy(x)).numpy()
@@ -71,6 +76,92 @@ def test_ssim_pair_scores_matches_vct(shape):
     for want in (np.asarray(vct_ssim_pair_scores(jnp.asarray(x))), _vct_device_ssim(x)):
         np.testing.assert_allclose(got, want, atol=2e-6, rtol=0)
         _same_ranking(got, want)
+
+
+# (B, L, H, W, C) the CUDA kernel's plan is held to: the bench step and the
+# two served buckets (the main path), chip_smoke's K4 shapes, one output row
+# (H=3), L=2, L-1 prime (13, 23) and H-2 prime (17, 13).
+PLAN_SHAPES = [
+    (32, 120, 80, 80, 3), (1, 120, 80, 80, 3), (1, 240, 80, 80, 3),
+    (4, 2, 80, 80, 3), (2, 12, 16, 16, 3), (1, 9, 11, 44, 3), (2, 10, 8, 48, 3), (1, 7, 9, 86, 3),
+    (2, 21, 16, 48, 1), (3, 5, 3, 3, 3), (3, 13, 7, 5, 1), (2, 10, 8, 8, 3), (2, 9, 12, 132, 1),
+    (2, 9, 12, 258, 1), (2, 9, 12, 5, 1), (1, 30, 3, 80, 3), (1, 2, 80, 80, 3), (1, 14, 80, 80, 3),
+    (2, 24, 19, 40, 3), (1, 24, 15, 80, 3), (4, 30, 80, 80, 3), (1, 6, 9, 128, 3),
+    (1, 9, 14, 320, 3), (1, 4, 6, 3840, 3), (1, 4, 6, 426, 3), (1, 120, 240, 320, 3),
+    (1, 120, 1080, 1920, 3), (1, 120, 2160, 3840, 3),
+]
+MAIN_PATH_SHAPES = PLAN_SHAPES[:3]
+
+
+def _spans(p, L, H):
+    """The plan's chunks as (first transition, transitions) and bands as
+    (first output row, output rows), cut as ssim.cu cuts them."""
+    K, R = p["chunk_pairs"], p["band_rows"]
+    chunks = [(t0, min(K, L - 1 - t0)) for t0 in range(0, L - 1, K)]
+    bands = [(i0, min(R, H - 2 - i0)) for i0 in range(0, H - 2, R)]
+    return chunks, bands
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_ssim_plan_cuts_every_shape_exactly(shape):
+    """Chunks cover the transitions 0..L-2 once, bands the output rows
+    0..H-3 once, each band reading its rows and two more inside the frame;
+    the shared memory fits a block; the card gets about two blocks an SM
+    (``MIN_BLOCKS``), or a block for every (pair, row) where there are
+    fewer."""
+    B, L, H, W, C = shape
+    p = ssim_ops.plan(*shape)
+    chunks, bands = _spans(p, L, H)
+    assert [t for t0, n in chunks for t in range(t0, t0 + n)] == list(range(L - 1))
+    assert [i for i0, n in bands for i in range(i0, i0 + n)] == list(range(H - 2))
+    assert all(1 <= n <= p["chunk_pairs"] <= ssim_ops.MAX_CHUNK_PAIRS for _, n in chunks)
+    assert all(1 <= n <= p["band_rows"] and i0 + n + 2 <= H for i0, n in bands)
+    assert (len(chunks), len(bands)) == (p["chunks"], p["bands"])
+    assert p["blocks"] == B * p["chunks"] * p["bands"]
+    assert p["smem_bytes"] + 1024 <= 227 * 1024
+    assert p["threads"] % 32 == 0 and 32 <= p["threads"] <= 256
+    assert p["blocks"] >= min(ssim_ops.MIN_BLOCKS, B * (L - 1) * (H - 2))
+
+
+@pytest.mark.parametrize("shape", MAIN_PATH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_ssim_plan_fills_the_card_on_the_main_path(shape):
+    """The bench step keeps whole frames as bands; a single served video is
+    cut into bands and short chunks, so that it too gives the card about
+    two blocks an SM: at least nine tenths of 2 x 132, in one wave."""
+    B, L, H, W, C = shape
+    p = ssim_ops.plan(*shape)
+    assert p["blocks"] >= ssim_ops.MIN_BLOCKS == 9 * 2 * 132 // 10
+    if B == 1:
+        assert p["blocks"] <= ssim_ops.RESIDENT_BLOCKS
+    if B == 32:
+        assert p["bands"] == 1
+    else:
+        assert p["bands"] > 1 and p["chunk_pairs"] < ssim_ops.MAX_CHUNK_PAIRS
+
+
+@pytest.mark.parametrize("W", [320, 1920, 3840, 11520])
+def test_ssim_plan_shared_memory_does_not_grow_with_width(W):
+    """A block stages only the bytes its column group reads, so decoded
+    frames of any width, 4K included, get a plan with every K, in the
+    shared memory of a frame 86 pixels wide."""
+    p = ssim_ops.plan(1, 120, 64, W, 3, ssim_ops.MAX_CHUNK_PAIRS, 8)
+    narrow = ssim_ops.plan(1, 120, 64, 86, 3, ssim_ops.MAX_CHUNK_PAIRS, 8)
+    assert p["smem_bytes"] == narrow["smem_bytes"]
+    assert p["threads"] == 256 and p["smem_bytes"] + 1024 <= 227 * 1024
+
+
+@pytest.mark.parametrize("K,R", [(1, 1), (3, 5), (7, 17), (2, 40)])
+def test_ssim_plan_takes_a_forced_chunk_and_band(K, R):
+    p = ssim_ops.plan(2, 24, 19, 40, 3, K, R)
+    chunks, bands = _spans(p, 24, 19)
+    assert (p["chunk_pairs"], p["band_rows"]) == (K, min(R, 17))
+    assert (len(chunks), len(bands)) == (-(-23 // K), -(-17 // min(R, 17)))
+
+
+@pytest.mark.parametrize("K", [8, 24])
+def test_ssim_plan_refuses_chunks_the_kernel_has_no_instance_for(K):
+    with pytest.raises(ValueError, match="no plan"):
+        ssim_ops.plan(2, 30, 19, 40, 3, K, 0)
 
 
 @pytest.mark.parametrize("shape", [(3, 8, 7, 3), (2, 16, 43, 3), (4, 5, 9, 1)])

@@ -97,7 +97,7 @@ def _declare(lib) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.vct_pair_scores.argtypes = [p, p, i, i, ll, i, p]
     lib.vct_pair_scores.restype = i
-    lib.vct_ssim_pair_scores.argtypes = [p, p, i, i, i, i, i, f, f, f, f, p]
+    lib.vct_ssim_pair_scores.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, f, p]
     lib.vct_ssim_pair_scores.restype = i
     lib.vct_normalize_frames.argtypes = [p, p, ll, i, p, p, f, p]
     lib.vct_normalize_frames.restype = i

@@ -3,8 +3,10 @@
 Port of ``vct/ops/ssim_pallas.py::ssim_pair_scores`` (the TPU kernels
 ``_ssim_clip_kernel`` / ``_ssim_pair_kernel``, math in
 ``_ssim_chunk_scores``). The CUDA kernel is ``vct_torch/csrc/ssim.cu``; its
-note says what bounds it on the H100 (the ALU work of the five window
-moments and the SSIM expression) and how its design meets that.
+note says what bounds it on the H100 (instruction issue: the window sums and
+the SSIM expression) and how its design meets that: a block takes a chunk of
+K transitions and a band of R output rows, so each frame's window sums are
+formed once per chunk. ``plan`` chooses (K, R, threads) from the shape.
 
 ``ssim_pair_scores`` dispatches by device: a CPU tensor goes to the plain
 PyTorch version ``ssim_pair_scores_ref``, a CUDA tensor to the kernel. The
@@ -20,14 +22,99 @@ operation unfused and agrees bit for bit.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from vct_torch.ops import _build
 
-__all__ = ["ssim_pair_scores", "ssim_pair_scores_ref", "KERNEL_WINDOWS"]
+__all__ = ["ssim_pair_scores", "ssim_pair_scores_ref", "plan", "KERNEL_WINDOWS"]
 
 KERNEL_WINDOWS = (3,)  # the kernel's window sizes
 _MAX_GRID_Y = 65535
+MAX_CHUNK_PAIRS = 7  # K: the kernel has an instance for each K up to this
+MAX_THREADS = 256
+RAW_STAGES = 15  # the kernel's ring of input rows in shared memory (kStages)
+# The row buffers' shared memory a block may take: 227 KB, the most a block
+# may take, less 1 KB for the kernel's static reduction array.
+SMEM_BYTES = 232448 - 1024
+# Blocks the card holds at once: two 256-thread blocks on each of 132 SMs
+# (``__launch_bounds__(256, 2)``).
+RESIDENT_BLOCKS = 2 * 132
+# The fewest blocks a plan gives where the shape allows: about two an SM,
+# nine tenths of RESIDENT_BLOCKS. The plans timed fastest for one video
+# (chip_smoke.py's ssim_pair_scores_plans) run 240-264 blocks, one wave;
+# a floor of exactly two an SM pushed them into a second, part-filled wave.
+MIN_BLOCKS = 9 * RESIDENT_BLOCKS // 10
+# The plan's cost model, in instructions a thread (counted from the
+# kernel's SASS): one frame's work at one input row (three shared-memory
+# loads, the packed taps, the 3-tap and vertical sums, the moments), one
+# pair's (a*b, covariance, numerator, denominator, division, f64 add), a
+# row's loop and copies, and a block's fixed part (the reduction).
+_FRAME_COST, _PAIR_COST, _ROW_COST, _BLOCK_COST = 14, 21, 20, 400
+
+
+@functools.lru_cache(maxsize=None)
+def plan(B: int, L: int, H: int, W: int, C: int, chunk_pairs: int = 0,
+         band_rows: int = 0) -> dict:
+    """How a CUDA launch cuts (B, L, H, W, C) uint8 clips: K =
+    ``chunk_pairs`` transitions a block (one chunk), R = ``band_rows``
+    output rows a block (one band; it reads R+2 input rows), ``threads`` a
+    block, one output column a thread, the row's (W-2)*C columns taken a
+    group of ``threads`` at a time.
+
+    Each option at 0 is chosen: among the (K, R) whose blocks number at
+    least ``MIN_BLOCKS`` (or every (pair, row) when there are fewer), the
+    least modelled time, waves of resident blocks times a block's cost in
+    instructions. A pure function of the shape; the kernel takes any plan
+    this returns.
+    """
+    pairs, out_rows, WC = L - 1, H - 2, W * C
+    if pairs < 1 or out_rows < 1 or W < 3 or C < 1:
+        raise ValueError(f"ssim_pair_scores: no plan for L={L}, H={H}, W={W}, C={C}")
+    threads = min(MAX_THREADS, -(-WC // 32) * 32)
+    groups = -(-(WC - 2 * C) // threads)
+    # RAW_STAGES input rows of the K+1 frames (K+2 at K=7: a bank-conflict
+    # pad), each the threads + 2C bytes a column group reads, in 16-byte pieces
+    row_bytes = -(-min(threads + 2 * C, WC) // 16) * 16
+
+    def smem(K):
+        return RAW_STAGES * row_bytes * (K + 1 + (K + 1) // 8)
+
+    k_fit = min(MAX_CHUNK_PAIRS, pairs)
+    while k_fit >= 1 and smem(k_fit) > SMEM_BYTES:
+        k_fit -= 1
+    if k_fit < 1 or chunk_pairs > k_fit or chunk_pairs < 0 or band_rows < 0:
+        raise ValueError(f"ssim_pair_scores: no plan with K={chunk_pairs}, R={band_rows} "
+                         f"for L={L}, H={H}, W={W}, C={C}")
+    ks = [chunk_pairs] if chunk_pairs else range(1, k_fit + 1)
+    rs = ([min(band_rows, out_rows)] if band_rows
+          else sorted({-(-out_rows // n) for n in range(1, out_rows + 1)}))
+    target = min(MIN_BLOCKS, B * pairs * out_rows)
+    best = None
+    for K in ks:
+        for R in rs:
+            blocks = B * -(-pairs // K) * -(-out_rows // R)
+            if blocks < target and not (chunk_pairs and band_rows):
+                continue
+            block_cost = (groups * (R + 2) * ((K + 1) * _FRAME_COST + K * _PAIR_COST + _ROW_COST)
+                          + _BLOCK_COST)
+            # Full waves of resident blocks, then a partial one: as long where
+            # it puts two blocks on some SM, half as long where each SM gets
+            # at most one (a block alone has the SM's issue slots to itself).
+            waves, rest = divmod(blocks, RESIDENT_BLOCKS)
+            waves += 0 if rest == 0 else (1.0 if 2 * rest > RESIDENT_BLOCKS else 0.5)
+            key = (waves * block_cost, blocks)
+            if best is None or key < best[0]:
+                best = (key, K, R, blocks)
+    if best is None:  # one option forced, the other too coarse to fill the card
+        K = chunk_pairs or 1
+        R = min(band_rows, out_rows) or 1
+        best = (None, K, R, B * -(-pairs // K) * -(-out_rows // R))
+    _, K, R, blocks = best
+    return {"chunk_pairs": K, "band_rows": R, "threads": threads,
+            "chunks": -(-pairs // K), "bands": -(-out_rows // R), "blocks": blocks,
+            "smem_bytes": smem(K)}
 
 
 def _validate(clips: torch.Tensor, win: int) -> None:
@@ -116,17 +203,50 @@ def ssim_pair_scores(clips: torch.Tensor, win: int = 3,
         raise ValueError(f"the ssim_pair_scores kernel takes at most {_MAX_GRID_Y} clips, got {B}")
     if B == 0 or L < 2:
         return torch.zeros((B, max(L - 1, 0)), dtype=torch.float32, device=clips.device)
+    out = _launch(clips, plan(B, L, H, W, C), _constants(win, data_range))
+    ssim_pair_scores.launches += 1
+    return out
+
+
+# The kernel's (clip, chunk) counters, one tensor per (device, stream): zero
+# before a launch and set back to zero by the launch's last block of each
+# (clip, chunk), so they are allocated once and never cleared by the host,
+# and launches on two streams never share one. A tensor outgrown is kept,
+# not freed: a CUDA graph captured with it still writes there.
+_counters: dict = {}
+_outgrown: list = []
+
+
+def _counter(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    c = _counters.get((device, stream))
+    if c is None or c.numel() < n:
+        if c is not None:
+            _outgrown.append(c)
+        c = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _counters[(device, stream)] = c
+    return c
+
+
+def _launch(clips: torch.Tensor, p: dict, constants) -> torch.Tensor:
+    """The kernel under plan ``p`` on contiguous uint8 CUDA clips, no
+    checks, no count."""
+    B, L, H, W, C = clips.shape
     out = torch.empty((B, L - 1), dtype=torch.float32, device=clips.device)
-    inv_n, cov_norm, c1, c2 = _constants(win, data_range)
     lib = _build.load_kernels()
     with torch.cuda.device(clips.device):
         stream = torch.cuda.current_stream().cuda_stream
+        partial = counter = None
+        if p["bands"] > 1:
+            partial = torch.empty((B, L - 1, p["bands"]), dtype=torch.float64,
+                                  device=clips.device)
+            counter = _counter(clips.device, stream, B * p["chunks"])
         err = lib.vct_ssim_pair_scores(
-            clips.data_ptr(), out.data_ptr(), B, L, H, W * C, C,
-            inv_n, cov_norm, c1, c2, stream,
+            clips.data_ptr(), out.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            None if counter is None else counter.data_ptr(),
+            B, L, H, W * C, C, p["chunk_pairs"], p["band_rows"], p["threads"], *constants, stream,
         )
     _build.check(lib, err, "ssim_pair_scores kernel launch")
-    ssim_pair_scores.launches += 1
     return out
 
 
