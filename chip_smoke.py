@@ -12,8 +12,17 @@ line):
 1. device — the card's name and power limit (nvidia-smi);
 2. build — nvcc builds the kernels of ``vct_torch/csrc`` (timed) and each
    kernel's registers, stack frame and spills are printed;
-3. K1 ``pair_scores`` against ``pair_scores_ref`` on the card: SAD
-   bit-exact, flow rtol 1e-6 (both sum exactly in integers);
+3. K1 ``pair_scores`` against ``pair_scores_ref`` on the card, SAD and
+   flow both bit-equal (both sum exactly in integers and round once), each
+   launch just after NaN was left in every SM's shared memory, each shape
+   printed with its plan (``plan``: transitions a chunk, bands, cluster,
+   threads, stages, blocks): the bench step, both served buckets, one
+   decoded 320x240 video, L=2, the kernel-audit geometries, frames off a
+   multiple of 16 bytes and an unaligned view (the byte path), a frame of
+   one 16-byte word, one decoded 1080p video (more bands than a cluster),
+   forced plans whose chunks and bands do not divide the clip on both
+   paths, a served bucket in 20 bands, and all-equal frames, which must
+   score exactly 0; then three CUDA-graph replays of a served bucket;
 4. K4 ``ssim_pair_scores`` against ``ssim_pair_scores_ref`` on the card,
    each launch just after NaN was left in every SM's shared memory, each
    shape printed with its plan (``plan``: transitions a chunk, output rows
@@ -91,10 +100,18 @@ line):
     its plan and, for each K, the two band heights whose block counts lie
     either side of two an SM, each checked bit-equal first, at the three
     main-path shapes and one decoded 320x240 video
-    (``ssim_pair_scores_plans``). K6 is on no serving path (as in vct): its
-    launches are 0. ``_k4_timing`` uses only the public K4 names, so it can
-    time an older checkout's kernel too (load this file by its path from
-    that checkout's root).
+    (``ssim_pair_scores_plans``); K1's time by events, its bare launch
+    (``launch_ms``, without the wrapper's checks), its device time and its
+    plan at the bench step (SAD and flow), both served buckets and one
+    decoded 320x240 video, and its device time under the plan's choice and
+    its neighbours, each checked bit-equal first, at the four SAD shapes
+    (``pair_scores_plans``). K6 is on no serving path (as in vct): its
+    launches are 0. ``_k4_timing`` and ``_k1_timing`` use only the public
+    names of their kernels' modules (and K1's ``plan`` and ``_launch`` where
+    they exist), so they can time an older checkout's kernels too: load this
+    file by its path from that checkout's root, or, for K1, run
+    ``python3 chip_smoke.py --k1-timing ROOT``, which prints only
+    ``k1_timings`` of the package at ROOT.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -223,38 +240,161 @@ def _graph_ms(torch, fn, iters: int) -> float:
     return _events_ms(torch, graph.replay, 5, warmup=1) / iters
 
 
-def _check_pair_scores(torch, gen):
-    from vct_torch.ops.pair_scores import pair_scores, pair_scores_ref
+# K1 shapes the check and the timings share: the bench step, the two served
+# buckets, and one decoded 320x240 video (scored before any resize).
+K1_SHAPES = [(32, 2 * T, H, W, 3), (1, 2 * T, H, W, 3), (1, 4 * T, H, W, 3),
+             (1, 2 * T, 240, 320, 3)]
 
-    shapes = [
-        (32, 120, H, W, 3),  # bench-like batch (L = 2T)
-        (1, 120, H, W, 3),   # one bucket-padded video, both buckets the
-        (1, 240, H, W, 3),   # served requests below use
+
+def _k1_bound_ms(B: int, L: int, H_: int, W_: int, C: int) -> tuple[float, str]:
+    """K1's least time: every frame read once and each f32 score written
+    once, against three integer operations a byte of each pair."""
+    F = H_ * W_ * C
+    return _bound_ms(B * L * F + B * (L - 1) * 4, 3 * B * (L - 1) * F)
+
+
+def _check_pair_scores(torch, gen):
+    from vct_torch.ops import _build
+    from vct_torch.ops.pair_scores import _launch, pair_scores, pair_scores_ref, plan
+
+    shapes = K1_SHAPES + [
         (4, 2, H, W, 3),     # L = 2
         (2, 12, 16, 16, 3),  # the kernel-audit geometries: odd H, C=1,
         (1, 9, 11, 44, 3),   # L crossing a chunk boundary
         (2, 10, 8, 48, 3),
         (1, 7, 9, 86, 3),
         (2, 21, 16, 48, 1),
-        (3, 13, 7, 5, 1),    # odd H*W*C
+        (3, 13, 7, 5, 1),    # odd H*W*C: the byte path
+        (1, 9, 5, 7, 3),     # 105 bytes a frame: the byte path
+        (2, 9, 4, 4, 1),     # a frame of one 16-byte word: one band
+        (1, 5, 1080, 1920, 3),  # one decoded 1080p video: more bands than a cluster
     ]
-    cases = [(s, torch.randint(0, 256, s, dtype=torch.uint8, generator=gen).cuda()) for s in shapes]
+    cases = [(s, torch.randint(0, 256, s, dtype=torch.uint8, generator=gen).cuda(), None)
+             for s in shapes]
     flat = torch.randint(0, 256, (1 + 2 * 10 * 8 * 8 * 3,), dtype=torch.uint8, generator=gen).cuda()
-    cases.append(("unaligned 2x10x8x8x3", flat[1:].view(2, 10, 8, 8, 3)))
+    cases.append(("unaligned 2x10x8x8x3", flat[1:].view(2, 10, 8, 8, 3), None))
     frame = torch.randint(0, 256, (1, 1, H, W, 3), dtype=torch.uint8, generator=gen).cuda()
-    cases.append(("all-equal 4x30x80x80x3", frame.expand(4, 30, H, W, 3).contiguous()))
-    err = 0.0
-    for name, x in cases:
+    static = frame.expand(4, 30, H, W, 3).contiguous()
+    cases.append(("all-equal 4x30x80x80x3", static, None))
+    # Forced plans whose chunks and bands do not divide the clip, on the
+    # vector path (162 words a frame) and the byte path (2280 bytes), and
+    # bands beyond a cluster on one served bucket.
+    for K, nb in ((1, 1), (3, 5), (7, 17)):
+        for shape in ((1, 11, 18, 48, 3), (2, 24, 19, 40, 3)):
+            x = torch.randint(0, 256, shape, dtype=torch.uint8, generator=gen).cuda()
+            cases.append((f"{shape} K={K} bands={nb}", x, plan(*shape, K, nb)))
+    x = torch.randint(0, 256, (1, 2 * T, H, W, 3), dtype=torch.uint8, generator=gen).cuda()
+    cases.append((f"(1, {2 * T}, {H}, {W}, 3) K=7 bands=20", x, plan(*x.shape, 7, 20)))
+    for name, x, forced in cases:
+        p = plan(*x.shape) if forced is None else forced
         for method in ("sad", "flow"):
-            got, want = pair_scores(x, method), pair_scores_ref(x, method)
+            _build.fill_shared_memory(float("nan"))  # a stale read of shared memory fails the check
+            got = (pair_scores(x, method) if forced is None
+                   else _launch(x, forced, method == "flow"))
+            want = pair_scores_ref(x, method)
             torch.cuda.synchronize()
-            if method == "sad" and not torch.equal(got, want):
-                raise AssertionError(f"pair_scores sad {name}: not bit-exact")
-            torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
-            if got.numel():
-                err = max(err, (got - want).abs().max().item())
-    print(f"K1 pair_scores: {len(cases)} shapes x (sad, flow) agree; max abs err {err}")
-    return err
+            if not torch.equal(got, want):
+                raise AssertionError(f"pair_scores {method} {name}: not bit-equal, max abs err "
+                                     f"{(got - want).abs().max().item()}")
+            if x is static and bool(got.any()):
+                raise AssertionError(f"pair_scores {method}: all-equal frames do not score 0")
+        print(f"  K1 {name}: plan {p['design']} K={p['chunk_pairs']} bands={p['bands']} "
+              f"cluster={p['cluster']} threads={p['threads']} "
+              f"blocks={p['blocks']}")
+    # Three replays of a CUDA graph of a served bucket.
+    x = torch.randint(0, 256, (1, 2 * T, H, W, 3), dtype=torch.uint8, generator=gen).cuda()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pair_scores(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = pair_scores(x)
+    replays = []
+    for _ in range(3):
+        _build.fill_shared_memory(float("nan"))
+        graph.replay()
+        replays.append(y.clone())
+    torch.cuda.synchronize()
+    if not all(torch.equal(r, pair_scores_ref(x)) for r in replays):
+        raise AssertionError("pair_scores: CUDA graph replays differ from the plain version")
+    print(f"K1 pair_scores: {len(cases)} shapes and plans x (sad, flow) bit-equal, each after a "
+          f"NaN fill of shared memory; all-equal frames score 0; 3 graph replays bit-equal; "
+          f"max abs err 0.0")
+    return 0.0
+
+
+def _k1_timing(torch, gen, B: int, L: int, H_: int = H, W_: int = W, method: str = "sad") -> dict:
+    """K1 on (B, L, H_, W_, 3) random frames: its plan, time by events and
+    from a CUDA graph, the bare launch (where the package has one), the
+    plain version's time and the bound. Only the public names of
+    ``vct_torch.ops.pair_scores`` besides, so an older package (one with no
+    ``plan``) is timed the same way."""
+    from vct_torch.ops import pair_scores as k1
+
+    x = torch.randint(0, 256, (B, L, H_, W_, 3), dtype=torch.uint8, generator=gen).cuda()
+    bound, by = _k1_bound_ms(B, L, H_, W_, 3)
+    p = k1.plan(B, L, H_, W_, 3) if hasattr(k1, "plan") else None
+    launch_ms = None
+    if p is not None and hasattr(k1, "_launch"):
+        launch_ms = _events_ms(torch, lambda: k1._launch(x, p, method == "flow"), 50)
+    return {
+        "shape": [B, L, H_, W_, 3], "method": method, "plan": p,
+        "ms": _events_ms(torch, lambda: k1.pair_scores(x, method), 50),
+        "launch_ms": launch_ms,
+        "device_ms": _graph_ms(torch, lambda: k1.pair_scores(x, method), 20),
+        "plain_ms": _events_ms(torch, lambda: k1.pair_scores_ref(x, method), 5),
+        "bound_ms": bound, "bound_by": by,
+    }
+
+
+def _k1_neighbours(B: int, L: int, H_: int, W_: int, C: int) -> list[tuple[str, int, int]]:
+    """(design, K, bands) of the plan's choice and its neighbours: the other
+    design; in the "bands" design, half and twice the choice's K, the K of
+    one chunk more and one fewer, the whole clip in one chunk, each with half
+    and twice its bands."""
+    from vct_torch.ops.pair_scores import plan
+
+    p = plan(B, L, H_, W_, C)
+    bands = p if p["design"] == "bands" else plan(B, L, H_, W_, C, design="bands")
+    K, nb, pairs, chunks = bands["chunk_pairs"], bands["bands"], L - 1, bands["chunks"]
+    ks = {K, max(1, K // 2), min(pairs, 2 * K), pairs, -(-pairs // (chunks + 1))}
+    if chunks > 1:
+        ks.add(-(-pairs // (chunks - 1)))
+    out = [(p["design"], p["chunk_pairs"], p["bands"])]
+    try:
+        q = plan(B, L, H_, W_, C, design="chunks")
+        out.append(("chunks", q["chunk_pairs"], q["bands"]))
+    except ValueError:
+        pass
+    for k in sorted(ks):
+        for b in sorted({nb, max(1, nb // 2), 2 * nb}):
+            try:
+                q = plan(B, L, H_, W_, C, k, b, "bands")
+            except ValueError:
+                continue
+            if ("bands", q["chunk_pairs"], q["bands"]) not in out:
+                out.append(("bands", q["chunk_pairs"], q["bands"]))
+    return list(dict.fromkeys(out))
+
+
+def _k1_plans(torch, gen, B: int, L: int, H_: int, W_: int, C: int) -> dict:
+    """K1's device time under the plan's choice and its neighbours, each
+    checked bit-equal to the plain version (SAD) first."""
+    from vct_torch.ops.pair_scores import _launch, pair_scores_ref, plan
+
+    x = torch.randint(0, 256, (B, L, H_, W_, C), dtype=torch.uint8, generator=gen).cuda()
+    want = pair_scores_ref(x)
+    times = {}
+    for design, K, nb in _k1_neighbours(B, L, H_, W_, C):
+        p = plan(B, L, H_, W_, C, K, nb, design)
+        if not torch.equal(_launch(x, p, False), want):
+            raise AssertionError(f"pair_scores: plan {design} K={K} bands={nb} not bit-equal")
+        key = (f"{design}_K{K}_bands{nb}_cluster{p['cluster']}_blocks{p['blocks']}"
+               f"_threads{p['threads']}")
+        times[key] = _graph_ms(torch, lambda: _launch(x, p, False), 20)
+    return {"shape": [B, L, H_, W_, C], "plan": plan(B, L, H_, W_, C), "device_ms": times}
 
 
 def _k4_timing(torch, gen, B: int, L: int, H_: int = H, W_: int = W) -> dict:
@@ -789,25 +929,12 @@ def _rnn_timing(torch, gen, ops, cell, kind, B, T_, Hd, L, in_size=512):
 
 def _kernel_timings(torch, gen, launches, errs, gpu):
     from vct_torch.ops import lstm as rnn_ops
-    from vct_torch.ops.pair_scores import pair_scores, pair_scores_ref
     from vct_torch.ops.preprocess import normalize_frames, normalize_frames_ref
     from vct_torch.ops.selective_scan import _launch as _scan_launch
     from vct_torch.ops.selective_scan import decode_plan
     from vct_torch.ops.selective_scan import plan as scan_plan
     from vct_torch.ops.selective_scan import plan_code as scan_plan_code
     from vct_torch.ops.selective_scan import selective_scan, selective_scan_ref
-
-    def k1(B, L, method="sad"):
-        x = torch.randint(0, 256, (B, L, H, W, 3), dtype=torch.uint8, generator=gen).cuda()
-        F = H * W * 3
-        bound, by = _bound_ms(B * L * F + B * (L - 1) * 4, 3 * B * (L - 1) * F)
-        return {
-            "shape": [B, L, H, W, 3], "method": method,
-            "ms": _events_ms(torch, lambda: pair_scores(x, method), 20),
-            "device_ms": _graph_ms(torch, lambda: pair_scores(x, method), 20),
-            "plain_ms": _events_ms(torch, lambda: pair_scores_ref(x, method), 5),
-            "bound_ms": bound, "bound_by": by,
-        }
 
     def k3(B, L, D, N):
         args = _scan_inputs(torch, gen, B, L, D, N)
@@ -859,14 +986,15 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
             "bound_ms": bound, "bound_by": by,
         }
 
-    t1, t3 = k1(32, 2 * T), k3(32, T, 16, 32)
+    t1, t3 = _k1_timing(torch, gen, 32, 2 * T), k3(32, T, 16, 32)
     t4, t6 = _k4_timing(torch, gen, 32, 2 * T), k6((32, T, H, W, 3))
     kernels = [
         {"name": "pair_scores", "route": "cuda", "source": "vct_torch/csrc/pair_scores.cu",
          "replaces": "vct/ops/pair_scores_pallas.py:119", "launches": launches["pair_scores"],
          "max_abs_err": errs["pair_scores"], "ms": t1["ms"], "plain_ms": t1["plain_ms"],
          "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"], "library_ms": None,
-         "device_ms": t1["device_ms"], "shape": t1["shape"]},
+         "device_ms": t1["device_ms"], "shape": t1["shape"], "plan": t1["plan"],
+         "launch_ms": t1["launch_ms"]},
         {"name": "selective_scan", "route": "cuda", "source": "vct_torch/csrc/selective_scan.cu",
          "replaces": "vct/ops/selective_scan_pallas.py:111",
          "launches": launches["selective_scan"], "max_abs_err": errs["selective_scan"],
@@ -899,8 +1027,11 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
                                        "library_device_via", "library_max_abs_diff", "shape")},
         })
     extra = {"extra_timings": {
-        "pair_scores_B1_L120_sad": k1(1, 2 * T),
-        "pair_scores_B32_L120_flow": k1(32, 2 * T, "flow"),
+        "pair_scores_B32_L120_flow": _k1_timing(torch, gen, 32, 2 * T, method="flow"),
+        "pair_scores_B1_L120_sad": _k1_timing(torch, gen, 1, 2 * T),
+        "pair_scores_B1_L240_sad": _k1_timing(torch, gen, 1, 4 * T),
+        "pair_scores_B1_L120_320x240_sad": _k1_timing(torch, gen, 1, 2 * T, 240, 320),
+        "pair_scores_plans": [_k1_plans(torch, gen, *shape) for shape in K1_SHAPES],
         "ssim_pair_scores_B1_L120": _k4_timing(torch, gen, 1, 2 * T),
         "ssim_pair_scores_B1_L240": _k4_timing(torch, gen, 1, 4 * T),
         "ssim_pair_scores_B1_L120_320x240": _k4_timing(torch, gen, 1, 2 * T, 240, 320),
@@ -923,14 +1054,31 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
     return kernels
 
 
-def main() -> int:
+def k1_timings(torch, root: Path) -> dict:
+    """``_k1_timing`` at K1's five timed shapes (the bench step, SAD and flow,
+    the two served buckets, one decoded 320x240 video) for the
+    ``vct_torch`` package at ``root``: this checkout's, or an older one's."""
+    sys.path.insert(0, str(root))
+    gen = torch.Generator().manual_seed(0)
+    return {"k1_timings": [_k1_timing(torch, gen, 32, 2 * T, method=m) for m in ("sad", "flow")]
+            + [_k1_timing(torch, gen, *shape[:4]) for shape in K1_SHAPES[1:]],
+            "root": str(root), "gpu": _gpu_line()}
+
+
+def main(argv: list[str]) -> int:
+    """With no arguments, every phase; with ``--k1-timing [ROOT]``, only
+    ``k1_timings`` of the package at ROOT (default: this checkout)."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    here = Path(__file__).resolve().parent
+    if argv[:1] == ["--k1-timing"]:
+        print(json.dumps(k1_timings(torch, Path(argv[1]).resolve() if argv[1:] else here)))
+        return 0
+    sys.path.insert(0, str(here))
     from vct_torch.ops import _build
 
     gpu = _gpu_line()
@@ -980,4 +1128,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -56,3 +56,31 @@ def test_ssim_bound_is_its_instruction_count_over_the_issue_rate():
     assert (chip_smoke.SSIM_FRAME_INSTRUCTIONS, chip_smoke.SSIM_PAIR_INSTRUCTIONS) == (11, 17)
     assert t > (B * L * H * W * C) / chip_smoke.HBM_BYTES_PER_S * 1e3
     assert t > B * (L - 1) * elems / chip_smoke.SFU_RCP_PER_S * 1e3
+
+
+def test_k1_bound_is_one_read_of_every_frame():
+    """K1 at the bench step: 32 clips of 120 80x80x3 frames read once and
+    119 f32 scores a clip written, against three operations a byte of each
+    pair at the f32 rate; the bytes take longer."""
+    t, by = chip_smoke._k1_bound_ms(32, 120, 80, 80, 3)
+    n_bytes = 32 * 120 * 80 * 80 * 3 + 32 * 119 * 4
+    assert by == "bytes" and t == pytest.approx(n_bytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+@pytest.mark.parametrize("shape", chip_smoke.K1_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k1_neighbours_hold_the_plans_choice_and_plans_the_kernel_takes(shape):
+    from vct_torch.ops.pair_scores import plan
+
+    chosen = plan(*shape)
+    pairs = chip_smoke._k1_neighbours(*shape)
+    assert pairs[0] == (chosen["design"], chosen["chunk_pairs"], chosen["bands"])
+    assert len(pairs) == len(set(pairs)) >= 4 and {d for d, _, _ in pairs} == {"bands", "chunks"}
+    for design, K, nb in pairs:
+        p = plan(*shape, K, nb, design)
+        assert (p["design"], p["chunk_pairs"], p["bands"]) == (design, K, nb)
+
+
+@pytest.mark.parametrize("argv", [[], ["--k1-timing"]])
+def test_main_needs_a_card(argv):
+    """Without CUDA the script exits non-zero before any phase."""
+    assert chip_smoke.main(argv) == 1

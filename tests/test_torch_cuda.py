@@ -6,7 +6,8 @@ the root conftest (it exists for JAX's CPU re-exec):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 
-Tolerances: SAD and flow exact (both sides sum exactly in integers); SSIM
+Tolerances: SAD and flow exact (both sides sum exactly in integers and
+round once; the K1 cases after a NaN fill of shared memory); SSIM
 atol 2e-6 (vct's own tolerance) and, for the cases after a NaN fill of
 shared memory, bit-equal (the kernel repeats the plain version's f32
 operations unfused, up to exact scalings by two, and sums in f64); the frame
@@ -17,6 +18,8 @@ cases run after NaN was left in shared memory); logits atol = rtol = 1e-4
 with TF32 off.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +29,7 @@ from vct_torch.data import preprocess
 from vct_torch.models import build_model
 from vct_torch.ops import _build
 from vct_torch.ops import lstm as rnn_ops
+from vct_torch.ops import pair_scores as k1_ops
 from vct_torch.ops.pair_scores import pair_scores, pair_scores_ref
 from vct_torch.ops.preprocess import normalize_frames, normalize_frames_ref
 from vct_torch.ops import selective_scan as scan_ops
@@ -60,6 +64,129 @@ def test_pair_scores_kernel_matches_plain(cuda_device, shape, method):
     torch.cuda.synchronize()
     assert pair_scores.launches == before + 1
     assert torch.equal(got, want)
+
+
+def _check_k1_after_nan_fill(x, p=None):
+    """The K1 kernel, launched just after NaN was left in every SM's shared
+    memory, bit-equal to the plain version for SAD and flow: under the
+    plan's choice through ``pair_scores`` (one counted launch each), or
+    under the forced plan p."""
+    for method in ("sad", "flow"):
+        before = pair_scores.launches
+        _build.fill_shared_memory(float("nan"))
+        if p is None:
+            got = pair_scores(x, method)
+            assert pair_scores.launches == before + 1
+        else:
+            got = k1_ops._launch(x, p, method == "flow")
+        want = pair_scores_ref(x, method)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), method
+
+
+@pytest.mark.parametrize("shape", [(1, 120, 80, 80, 3), (1, 240, 80, 80, 3), (32, 120, 80, 80, 3),
+                                   (1, 120, 240, 320, 3)],
+                         ids=["served120", "served240", "bench", "decoded320x240"])
+def test_pair_scores_kernel_at_the_served_and_bench_plans(cuda_device, shape):
+    """One video takes clusters of bands, about a block an SM; the bench
+    batch the chunks design."""
+    assert k1_ops.plan(*shape)["design"] == ("chunks" if shape[0] == 32 else "bands")
+    _check_k1_after_nan_fill(torch.from_numpy(_clips(shape)).to(cuda_device))
+
+
+@pytest.mark.parametrize("shape", [(1, 11, 18, 48, 3), (2, 24, 19, 40, 3), (3, 2, 80, 80, 3)],
+                         ids=["vector", "bytes", "L2"])
+def test_pair_scores_kernel_under_the_chunks_design(cuda_device, shape):
+    _check_k1_after_nan_fill(torch.from_numpy(_clips(shape)).to(cuda_device),
+                             k1_ops.plan(*shape, design="chunks"))
+
+
+@pytest.mark.parametrize("nb", [1, 5, 17])
+@pytest.mark.parametrize("K", [1, 3, 7])
+@pytest.mark.parametrize("shape", [(1, 11, 18, 48, 3), (2, 24, 19, 40, 3)],
+                         ids=["vector", "bytes"])
+def test_pair_scores_kernel_under_forced_plans(cuda_device, shape, K, nb):
+    """Chunks of K of 10 or 23 transitions and bands of 162 words (2592
+    bytes a frame, the vector path) or 2280 bytes (the byte path), so the
+    last chunk and band are short."""
+    p = k1_ops.plan(*shape, K, nb)
+    words = -(-math.prod(shape[2:]) // 16)
+    assert (p["chunk_pairs"], p["bands"]) == (K, -(-words // -(-words // nb)))  # none empty
+    _check_k1_after_nan_fill(torch.from_numpy(_clips(shape)).to(cuda_device), p)
+
+
+@pytest.mark.parametrize("shape,nb", [((1, 120, 80, 80, 3), 20), ((1, 5, 1080, 1920, 3), 0),
+                                      ((2, 30, 80, 80, 3), 1200)],
+                         ids=["served_20_bands", "decoded1080p", "a_word_a_band"])
+def test_pair_scores_kernel_with_more_bands_than_a_cluster(cuda_device, shape, nb):
+    """Blocks take bands rank, rank + 8, ... in turn, their pieces streaming
+    through one ring."""
+    p = k1_ops.plan(*shape, 0, nb)
+    assert p["bands"] > p["cluster"] == k1_ops.MAX_CLUSTER
+    _check_k1_after_nan_fill(torch.from_numpy(_clips(shape)).to(cuda_device),
+                             p if nb else None)
+
+
+@pytest.mark.parametrize("shape", [(3, 13, 7, 5, 1), (1, 9, 5, 7, 3), (2, 9, 4, 4, 1),
+                                   (4, 2, 80, 80, 3)],
+                         ids=["odd_bytes", "105_bytes", "one_word", "L2"])
+def test_pair_scores_kernel_byte_path_and_small_frames(cuda_device, shape):
+    _check_k1_after_nan_fill(torch.from_numpy(_clips(shape)).to(cuda_device))
+
+
+def test_pair_scores_kernel_unaligned_clips_take_the_byte_path(cuda_device):
+    flat = torch.from_numpy(_clips((1 + 2 * 10 * 8 * 16 * 3,))).to(cuda_device)
+    _check_k1_after_nan_fill(flat[1:].view(2, 10, 8, 16, 3))
+
+
+@pytest.mark.parametrize("B", [3, 16], ids=["bands", "chunks"])
+def test_pair_scores_kernel_scores_all_equal_frames_zero(cuda_device, B):
+    x = torch.from_numpy(np.repeat(_clips((B, 1, 80, 80, 3)), 40, axis=1)).to(cuda_device)
+    assert k1_ops.plan(*x.shape)["design"] == ("bands" if B == 3 else "chunks")
+    for method in ("sad", "flow"):
+        _build.fill_shared_memory(float("nan"))
+        assert torch.equal(pair_scores(x, method), torch.zeros((B, 39), device=cuda_device))
+
+
+def test_pair_scores_kernel_graph_replays_give_the_same_scores(cuda_device):
+    """No scratch, no counter: a CUDA graph of a served bucket replayed three
+    times gives the same, right scores."""
+    x = torch.from_numpy(_clips((1, 120, 80, 80, 3))).to(cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pair_scores(x), pair_scores(x, "flow")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ys = pair_scores(x), pair_scores(x, "flow")
+    replays = []
+    for _ in range(3):
+        _build.fill_shared_memory(float("nan"))
+        graph.replay()
+        replays.append([y.clone() for y in ys])
+    torch.cuda.synchronize()
+    wants = pair_scores_ref(x), pair_scores_ref(x, "flow")
+    assert all(torch.equal(r, w) for rs in replays for r, w in zip(rs, wants))
+
+
+def test_pair_scores_kernel_on_two_streams_at_once(cuda_device):
+    """Each launch's cluster sums its tile in its own shared memory, so
+    launches on two streams at once do not mix their sums."""
+    xs = [torch.from_numpy(_clips((1, L, 80, 80, 3), seed=L)).to(cuda_device) for L in (120, 240)]
+    methods = ("sad", "flow")
+    wants = [[pair_scores_ref(x, m) for m in methods] for x in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for i, (s, x) in enumerate(zip(streams, xs)):
+            with torch.cuda.stream(s):
+                outs[i].append([pair_scores(x, m) for m in methods])
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, w) for ys, ws in zip(outs, wants) for pair in ys
+               for y, w in zip(pair, ws))
 
 
 @pytest.mark.parametrize("shape", [(4, 19, 80, 80, 3), (1, 9, 11, 44, 3), (2, 21, 16, 48, 1),

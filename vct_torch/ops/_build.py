@@ -95,7 +95,7 @@ def _build(out_dir: Path) -> Path:
 
 def _declare(lib) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.vct_pair_scores.argtypes = [p, p, i, i, ll, i, p]
+    lib.vct_pair_scores.argtypes = [p, p, i, i, ll, i, i, i, i, i, i, i, p]
     lib.vct_pair_scores.restype = i
     lib.vct_ssim_pair_scores.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, f, p]
     lib.vct_ssim_pair_scores.restype = i
