@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the vct_torch serving path on one NVIDIA GPU and hold its kernels
-against their plain PyTorch versions.
+"""Drive the vct_torch serving and training paths on one NVIDIA GPU and hold
+their kernels against their plain PyTorch versions.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -60,7 +60,14 @@ line):
    shared-memory plans (H=65, its first shape; H=96 LSTM: W_hh staged,
    W_ih read through L2; H=256: both weights through L2; H=512, T=128: the
    previous layer's outputs through L2 too), an odd H=5, T=1, and K5
-   forward and through the time flip;
+   forward and through the time flip; then the backward kernels (K3's
+   ``selective_scan_bwd.cu``, K2/K5's ``lstm_bwd.cu``) against autograd
+   through the plain versions, each gradient within 1e-5 of its largest
+   magnitude, each launch after the NaN fill: K3 at the deployed step both
+   directions, VideoMamba's width and N = 1, 24, 64, 100; the LSTM and GRU
+   stacks at the bench stack, a request, the default width and H = 5, 17,
+   65, 256; K5 at the bench shape both directions; two runs and a CUDA-graph
+   replay bit-equal;
 8. the Mamba path — the deployed config (resnet50 bf16 backbone, 3 Mamba
    blocks, rnn_input 8, T=60, 80x80, scan_impl "pallas") with seeded
    weights serves three requests of four decoded videos each through
@@ -85,7 +92,22 @@ line):
    for the LSTM uni head a bench-shaped batch (B=32, L=80, ragged lengths)
    is timed as clips/s, held against the plain path (equal frame indices,
    logits atol = rtol = 1e-4) and against the CPU in f32 (1e-3);
-11. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
+11. the training path — for the deployed Mamba and the UCF50 LSTM at full
+    width, ``python -m vct_torch.train``'s ``main`` on 40 synthetic clips
+    (32 train, 8 test; B=32; 2 epochs), its epoch lines and metric block
+    checked by ``extract_metrics`` and the forward and backward kernels'
+    launches read around it; from the same weights, 5 Adam steps of the head
+    on the same backbone features through the kernels and through the plain
+    versions, dropout 0 and TF32 off, losses within 1e-4 relative and
+    parameters too (in norm, over the elements whose gradient stayed above
+    1e-5 of its tensor's largest; the rest within Adam's 2 lr a step), every
+    trained parameter's kernel-path gradient present and within 1e-5 of the
+    plain path's; the steady-state train step timed by events as
+    ``train_clips_per_s`` with its launches a step, the backbone's forward and
+    the head's step alone, and a ``torch.profiler`` breakdown of a step's
+    device time by kernel; one train step each of the GRU and bidirectional
+    UCF50 heads, launches checked;
+12. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
     launches, error, time, plain time, bound and, for K2/K5, the design,
     ``us_per_step`` (device time over T*L) and cuDNN's ``nn.LSTM`` /
     ``nn.GRU`` time (``library_ms`` by events; ``library_device_ms`` replayed
@@ -111,7 +133,10 @@ line):
     they exist), so they can time an older checkout's kernels too: load this
     file by its path from that checkout's root, or, for K1, run
     ``python3 chip_smoke.py --k1-timing ROOT``, which prints only
-    ``k1_timings`` of the package at ROOT.
+    ``k1_timings`` of the package at ROOT. The backward rows (launches from
+    the training path) carry the time of the whole backward entry point,
+    autograd through the plain version as ``plain_ms``, and for LSTM/GRU
+    cuDNN's backward alone as ``library_ms``.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -134,6 +159,10 @@ ALU_OPS_PER_S = 67e12
 # expf's MUFU.EX2 on the special-function units: 16 a clock per SM (Hopper
 # white paper), 132 SMs at the 1.98 GHz boost clock.
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
+# K3 backward's least f32 work a (batch, step, channel, state): dh, its
+# products with B, C, h_{t-1}, a, dt and u, and the carry (vct_torch/csrc/
+# selective_scan_bwd.cu), beside one expf.
+SCAN_BWD_FLOPS = 12
 
 T, H, W = 60, 80, 80
 
@@ -651,6 +680,150 @@ def _check_rnn(torch, gen):
     return errs
 
 
+# Backward checks: each gradient within BWD_RTOL of its largest magnitude of
+# autograd through the plain version (f32, other summation orders).
+BWD_RTOL = 1e-5
+# K3 backward shapes (B, L, D, N): the deployed step, VideoMamba's width,
+# and N = 1, 24, 64, 100 at the deployed widths of a request.
+BWD_SCAN_SHAPES = [(32, T, 16, 32), (2, 256, 2048, 16)] + [(4, T, 16, n) for n in (1, 24, 64, 100)]
+# K2 backward shapes (B, T, H, L): the bench stack, a request, the default
+# width; odd widths H = 5 and 17, and H = 65 and 256 (W_hh read through L2).
+BWD_RNN_SHAPES = [(32, 40, 56, 4), (4, 40, 56, 4), (32, 60, 32, 3), (3, 7, 5, 3), (2, 20, 17, 3),
+                  (2, 16, 65, 2), (2, 16, 256, 2)]
+# The backward entry points and the vct custom_vjp backward each replaces
+# (plain JAX there, no Pallas kernel).
+BWD_KERNELS = {
+    "selective_scan_bwd": ("vct_torch/csrc/selective_scan_bwd.cu",
+                           "vct/ops/selective_scan_pallas.py:102"),
+    "lstm_stack_bwd": ("vct_torch/csrc/lstm_bwd.cu", "vct/ops/lstm_pallas.py:327"),
+    "gru_stack_bwd": ("vct_torch/csrc/lstm_bwd.cu", "vct/ops/lstm_pallas.py:327"),
+    "lstm_scan_bwd": ("vct_torch/csrc/lstm_bwd.cu", "vct/ops/lstm_pallas.py:343"),
+    "gru_scan_bwd": ("vct_torch/csrc/lstm_bwd.cu", "vct/ops/lstm_pallas.py:343"),
+}
+
+
+def _grads_close(torch, what, got, want, names) -> tuple[float, float]:
+    """Each gradient within BWD_RTOL of its largest magnitude; returns the
+    largest error over that magnitude and the largest absolute error."""
+    worst, worst_abs = 0.0, 0.0
+    for name, g, w in zip(names, got, want):
+        if g is None:
+            raise AssertionError(f"{what} d{name}: no gradient")
+        scale, err = w.abs().max().item(), (g - w).abs().max().item()
+        if not (err <= BWD_RTOL * scale if scale > 0 else err == 0):
+            raise AssertionError(f"{what} d{name}: max abs err {err} against {BWD_RTOL} x {scale}")
+        worst, worst_abs = max(worst, err / scale if scale > 0 else 0.0), max(worst_abs, err)
+    return worst, worst_abs
+
+
+def _replay_equal(torch, fn) -> bool:
+    """``fn`` (returning a tuple of tensors) run twice and replayed once from
+    a CUDA graph, each launch after a NaN fill: all bit-equal."""
+    from vct_torch.ops._build import fill_shared_memory
+
+    runs = []
+    for _ in range(2):
+        fill_shared_memory(float("nan"))
+        runs.append([t.clone() for t in fn()])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    fill_shared_memory(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    runs.append([t.clone() for t in out])
+    return all(torch.equal(a, b) for run in runs[1:] for a, b in zip(runs[0], run))
+
+
+def _check_backward(torch, gen) -> dict:
+    """Every backward kernel against autograd through its plain version,
+    each launch just after NaN was left in every SM's shared memory; two
+    runs and a graph replay bit-equal. Returns the largest relative errors."""
+    from vct_torch.ops import lstm as ops
+    from vct_torch.ops import selective_scan as k3
+    from vct_torch.ops._build import fill_shared_memory
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {n: (0.0, 0.0) for n in BWD_KERNELS}
+
+    def note(name, err):
+        errs[name] = tuple(max(a, b) for a, b in zip(errs[name], err))
+        return err[0]
+
+    for dims in BWD_SCAN_SHAPES:
+        args = _scan_inputs(torch, gen, *dims)
+        gy = torch.randn(dims[:3], generator=gen).cuda()
+        for reverse in ((False, True) if dims == BWD_SCAN_SHAPES[0] else (False,)):
+            leaves = [a.clone().requires_grad_(True) for a in args]
+            y = k3.selective_scan(*leaves, reverse=reverse)
+            fill_shared_memory(float("nan"))
+            got = torch.autograd.grad(y, leaves, gy)
+            want = k3.selective_scan_bwd_ref(*args, gy, reverse=reverse)
+            torch.cuda.synchronize()
+            err = note("selective_scan_bwd", _grads_close(
+                torch, f"selective_scan_bwd {dims} reverse={reverse}", got, want,
+                ("u", "delta", "A", "B", "C")))
+            print(f"  selective_scan_bwd B,L,D,N={dims} reverse={reverse}: max err / max |grad| "
+                  f"{err}")
+        if dims == BWD_SCAN_SHAPES[0]:
+            if not _replay_equal(torch, lambda: k3.selective_scan_bwd(*args, gy)):
+                raise AssertionError("selective_scan_bwd: runs or graph replay not bit-equal")
+
+    def stale(fn):
+        def wrapped(*a):
+            fill_shared_memory(float("nan"))
+            return fn(*a)
+        return wrapped
+
+    with mock.patch.object(ops, "_layer_bwd", stale(ops._layer_bwd)):
+        for cell, n_gates in (("lstm", 4), ("gru", 3)):
+            for B, T_, Hd, L in BWD_RNN_SHAPES:
+                args = _rnn_inputs(torch, gen, n_gates, B, T_, Hd, L)
+                gy = torch.randn(B, T_, Hd, generator=gen).cuda()
+                leaves = [a.clone().requires_grad_(True) for a in args]
+                got = torch.autograd.grad(getattr(ops, f"{cell}_stack")(*leaves), leaves, gy)
+                want = ops.stack_bwd_ref(*args, gy)
+                err = note(f"{cell}_stack_bwd", _grads_close(
+                    torch, f"{cell}_stack_bwd {(B, T_, Hd, L)}", got, want,
+                    ("xp0", "w_hh", "b_hh", "w_ih", "b_ih")))
+                print(f"  {cell}_stack_bwd B,T,H,L={(B, T_, Hd, L)}: max err / max |grad| {err}")
+                if (B, T_, Hd) == (32, 40, 56):
+                    y, hs, _ = ops._launch(f"{cell}_stack", n_gates, *args, save=True)
+                    bwd = getattr(ops, f"{cell}_stack_bwd")
+                    if not _replay_equal(torch, lambda: bwd(*args, hs, y, gy)):
+                        raise AssertionError(f"{cell}_stack_bwd: runs or graph replay not "
+                                             f"bit-equal")
+                    # K5, both directions (the reverse one through the time flip)
+                    for flip in (False, True):
+                        xp = torch.flip(args[0], dims=(1,)) if flip else args[0]
+                        leaves = [t.clone().requires_grad_(True) for t in (xp, args[1][0],
+                                                                            args[2][0])]
+                        got = torch.autograd.grad(getattr(ops, f"{cell}_scan")(*leaves), leaves,
+                                                  gy)
+                        want = ops.scan_bwd_ref(xp, args[1][0], args[2][0], gy)
+                        err = note(f"{cell}_scan_bwd", _grads_close(
+                            torch, f"{cell}_scan_bwd flip={flip}", got, want,
+                            ("xp", "w_hh", "b_hh")))
+                        print(f"  {cell}_scan_bwd B,T,H=(32, 40, 56) flip={flip}: max err / "
+                              f"max |grad| {err}")
+                    y1, _, _ = ops._launch(f"{cell}_scan", n_gates, args[0], args[1][0], args[2][0])
+                    sbwd = getattr(ops, f"{cell}_scan_bwd")
+                    if not _replay_equal(torch, lambda: sbwd(args[0], args[1][0], args[2][0], y1,
+                                                             gy)):
+                        raise AssertionError(f"{cell}_scan_bwd: runs or graph replay not bit-equal")
+    print(f"backward kernels: K3 at {len(BWD_SCAN_SHAPES)} shapes, K2 at {len(BWD_RNN_SHAPES)} "
+          f"shapes a cell, K5 both directions, each after a NaN fill of shared memory, within "
+          f"{BWD_RTOL} of each gradient's largest magnitude; two runs and a graph replay "
+          f"bit-equal; largest (err / max |grad|, abs err) {errs}")
+    return errs
+
+
 def _synthetic_videos(lengths, seed):
     """Decoded uint8 videos with static runs (tied SAD scores) and noisy runs."""
     rng = np.random.RandomState(seed)
@@ -865,6 +1038,357 @@ def _recurrent_path(torch, gpu):
     _bench_and_hold(torch, model, ModelConfig(**UCF50, rnn_type="lstm"), T_UCF50, gpu,
                     "ucf50_lstm", seed=3)
     return totals
+
+
+# The training path: both served configurations at full width, trained at
+# the bench batch (bench.py's train mode) on synthetic clips; 40 samples
+# split 32 / 8: one bench batch a step.
+TRAIN_CONFIGS = {"deployed_mamba": (DEPLOYED, T), "ucf50_lstm": ({**UCF50, "rnn_type": "lstm"},
+                                                                 T_UCF50)}
+TRAIN_BATCH, TRAIN_SAMPLES, TRAIN_EPOCHS = 32, 40, 2
+# Relative agreement of the kernel and plain training paths over 5 Adam steps.
+TRAIN_RTOL = 1e-4
+
+
+def _train_counters():
+    from vct_torch.ops import lstm as rnn_ops
+    from vct_torch.ops import selective_scan as k3
+
+    return {"selective_scan": k3.selective_scan, "selective_scan_bwd": k3.selective_scan_bwd,
+            **{n: getattr(rnn_ops, n) for n in RNN_KERNELS},
+            **{n: getattr(rnn_ops, n) for n in BWD_KERNELS if n != "selective_scan_bwd"}}
+
+
+def _expected_train_launches(model: dict, forwards: int, backwards: int) -> dict:
+    """Kernel launches of ``forwards`` forward passes and ``backwards``
+    backward passes of the head: the Mamba head one K3 forward and one K3
+    backward a block; the unidirectional LSTM/GRU stack one K2 forward and
+    one backward launch a layer; a bidirectional one K5 forward and backward
+    a layer and direction."""
+    want = dict.fromkeys(_train_counters(), 0)
+    layers, rnn = model["rnn_layer"], model["rnn_type"]
+    if rnn == "mamba":
+        want["selective_scan"] = forwards * layers
+        want["selective_scan_bwd"] = backwards * layers
+    elif model.get("bidirectional"):  # K5 a layer and direction, both ways
+        want[f"{rnn}_scan"] = forwards * 2 * layers
+        want[f"{rnn}_scan_bwd"] = backwards * 2 * layers
+    else:
+        want[f"{rnn}_stack"] = forwards
+        want[f"{rnn}_stack_bwd"] = backwards * layers
+    return want
+
+
+def _train_cli(torch, label, model: dict, seq_len: int) -> dict:
+    """``python -m vct_torch.train``'s main on synthetic data at full width:
+    its epoch lines and metric block, checked by ``extract_metrics``, and the
+    kernels' launches around exactly that run."""
+    import contextlib
+    import io
+    import tempfile
+
+    from vct_torch.core.metrics_contract import extract_metrics
+    from vct_torch.train.__main__ import main as train_main
+
+    argv = ["--data.synthetic", "true", "--data.synthetic_samples", str(TRAIN_SAMPLES),
+            "--data.sequence_length", str(seq_len), "--train.epochs", str(TRAIN_EPOCHS),
+            "--train.batch_size", str(TRAIN_BATCH), "--model.compute_dtype", "bfloat16"]
+    for key, value in model.items():
+        argv += [f"--model.{key}", str(value)]
+    counters = _train_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        for fn in counters.values():
+            fn.launches = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = train_main(argv + ["--train.model_path", tmp])
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in counters.items()}
+    text = out.getvalue()
+    print("\n".join(f"  | {line}" for line in text.splitlines()))
+    metrics = extract_metrics(text)
+    epochs = sum(line.startswith("Epoch ") for line in text.splitlines())
+    if rc != 0 or epochs != TRAIN_EPOCHS or "Model saved to" not in text:
+        raise AssertionError(f"{label}: train main rc {rc}, {epochs} epoch lines")
+    n_test = int(round(TRAIN_SAMPLES * 0.2))
+    steps = TRAIN_EPOCHS * -(-(TRAIN_SAMPLES - n_test) // TRAIN_BATCH)
+    want = _expected_train_launches(model, steps + -(-n_test // TRAIN_BATCH), steps)
+    print(f"{label} train main: accuracy {metrics.accuracy}, trainable params "
+          f"{metrics.trainable_params}; launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"{label}: train launches {launches} != expected {want}")
+    return launches
+
+
+def _train_hold_and_time(torch, gen, gpu, label, model: dict, seq_len: int) -> dict:
+    """From the same weights, dropout 0, TF32 off: five Adam steps of the
+    head on the same backbone features through the kernels and through the
+    plain versions (``_set_scan_impl``), losses and parameters within
+    TRAIN_RTOL; every trained parameter's gradient on the kernel path
+    (the declared-but-unread Mamba ``D`` excepted) within BWD_RTOL of its
+    largest magnitude of the plain path's; then the steady-state train step
+    at the bench batch, timed by CUDA events, with its launches a step."""
+    from vct_torch.core.config import Config
+    from vct_torch.train.engine import Trainer
+
+    overrides = {"data.sequence_length": str(seq_len), "train.batch_size": str(TRAIN_BATCH),
+                 "model.compute_dtype": "bfloat16", "model.dropout": "0.0",
+                 **{f"model.{k}": str(v) for k, v in model.items()}}
+    cfg = Config().replace(**overrides)
+    names = [f"class_{i}" for i in range(cfg.model.num_classes)]
+    trainer = Trainer(cfg, names)
+    net = trainer.model
+    start = {k: v.clone() for k, v in net.state_dict().items()}
+    clips = torch.rand(TRAIN_BATCH, seq_len, H, W, 3, generator=gen).cuda()
+    labels = [torch.randint(0, cfg.model.num_classes, (TRAIN_BATCH,), generator=gen).cuda()
+              for _ in range(5)]
+    mask = torch.ones(TRAIN_BATCH, device=clips.device)
+    with torch.no_grad():
+        feats = net.eval()(clips, features_only=True)
+    trainer._feature_mode = True
+    runs = {}
+    for impl in ("pallas", "scan"):
+        net.load_state_dict(start)
+        _set_scan_impl(net, impl)
+        net.train()
+        loss = trainer._loss_fn(net(feats, from_features=True), labels[0], mask)[0]
+        grads = torch.autograd.grad(loss, trainer._trained, allow_unused=True)
+        state = trainer.init_state()
+        losses, floor = [], [torch.zeros_like(p, dtype=torch.bool) for p in trainer._trained]
+        for y in labels:
+            losses.append(trainer._train_step(state, feats, y, mask)[0].item())
+            for f, p in zip(floor, trainer._trained):
+                f |= p.grad.abs() < BWD_RTOL * p.grad.abs().max()
+        runs[impl] = (grads, losses, [p.detach().clone() for p in trainer._trained], floor)
+    _set_scan_impl(net, "pallas")
+    names_trained = [n for n, p in net.named_parameters() if p.requires_grad]
+    (g_k, l_k, p_k, f_k), (g_p, l_p, p_p, f_p) = runs["pallas"], runs["scan"]
+    for n, a, b in zip(names_trained, g_k, g_p):
+        if n.endswith(".mixer.D"):
+            if a is not None or b is not None:
+                raise AssertionError(f"{label}: {n} is declared unused, yet has a gradient")
+            continue
+        _grads_close(torch, f"{label} kernel-path gradient of", [a], [b], [n])
+    # Parameters: each tensor's difference, in norm, within TRAIN_RTOL of its
+    # norm, over the elements whose gradient stayed above BWD_RTOL of the
+    # tensor's largest on both paths at every step. Below that floor the
+    # two paths' gradients are f32 noise and Adam's normalised step follows
+    # the noise's sign: those elements are held to the most two Adam
+    # trajectories can part by, 2 lr a step.
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_k, l_p))
+    bound = 2 * cfg.train.learning_rate * len(labels)
+    param_err, raw_err, at_floor, n_elems = 0.0, 0.0, 0, 0
+    for n, a, b, fa, fb in zip(names_trained, p_k, p_p, f_k, f_p):
+        floor = fa | fb
+        keep = ~floor
+        raw_err = max(raw_err, ((a - b).norm() / b.norm()).item())
+        if keep.any():
+            param_err = max(param_err, ((a - b)[keep].norm() / b[keep].norm()).item())
+        if not bool(((a - b).abs()[floor] <= bound).all()):
+            raise AssertionError(f"{label}: {n} moved apart beyond Adam's bound {bound}")
+        at_floor, n_elems = at_floor + int(floor.sum()), n_elems + floor.numel()
+    if not (loss_err <= TRAIN_RTOL and param_err <= TRAIN_RTOL):
+        raise AssertionError(f"{label}: 5 Adam steps, kernel vs plain: losses rel err {loss_err}, "
+                             f"parameters rel err {param_err}, over {TRAIN_RTOL}")
+    print(f"{label}: every trained parameter's gradient on the kernel path within {BWD_RTOL} of "
+          f"the plain path's ({len(names_trained)} tensors); 5 Adam steps, losses {l_k} "
+          f"against {l_p}: largest rel err {loss_err}; parameters (norm, above the gradients' "
+          f"noise floor) {param_err}, all elements {raw_err}; {at_floor} of {n_elems} elements "
+          f"at the floor, within {bound}")
+
+    # --- the steady-state train step at the bench batch ---------------------
+    trainer._feature_mode = False
+    net.load_state_dict(start)
+    state = trainer.init_state()
+    step = lambda: trainer._train_step(state, clips, labels[0], mask)  # noqa: E731
+    counters = _train_counters()
+    step_ms = _events_ms(torch, step, iters=5, warmup=2)
+    for fn in counters.values():
+        fn.launches = 0
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    per_step = {n: fn.launches / 3 for n, fn in counters.items()}
+    want = _expected_train_launches(model, 1, 1)
+    if per_step != want:
+        raise AssertionError(f"{label}: launches a train step {per_step} != expected {want}")
+    with torch.no_grad():
+        backbone_ms = _events_ms(torch, lambda: net(clips, features_only=True), iters=5)
+    trainer._feature_mode = True
+    head_ms = _events_ms(torch, lambda: trainer._train_step(state, feats, labels[0], mask), iters=10)
+    trainer._feature_mode = False
+    breakdown = _profile_groups(torch, step, 3)
+    out = {"config": label, "train_step_ms": step_ms, "train_clips_per_s": TRAIN_BATCH * 1e3 / step_ms,
+           "batch": TRAIN_BATCH, "T": seq_len, "backbone_forward_ms": backbone_ms,
+           "head_step_ms": head_ms, "launches_per_step": per_step,
+           "expected_launches_per_step": want, "device_breakdown": breakdown, "gpu": gpu}
+    print(json.dumps(out))
+    del trainer, net
+    torch.cuda.empty_cache()
+    return out
+
+
+def _profile_groups(torch, fn, steps: int) -> dict:
+    """Device time a step of ``fn`` by kernel, from ``torch.profiler`` over
+    ``steps`` calls: the twelve largest, their total, and the step's wall
+    time (busy share = device / wall); None where the profiler records no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    rows = []
+    for e in prof.key_averages():  # the kernels themselves, not the ops that launched them
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0.0)
+        if dev:
+            rows.append((e.key, dev / 1e3 / steps))
+    if not rows:
+        return {"device_ms": None, "wall_ms": wall}
+    rows.sort(key=lambda r: -r[1])
+    total = sum(ms for _, ms in rows)
+    return {"device_ms": total, "wall_ms": wall, "busy_share": total / wall,
+            "top": [[k[:80], ms] for k, ms in rows[:12]]}
+
+
+def _train_heads(torch, gen) -> dict:
+    """One train step at the bench batch for each other head of the UCF50
+    geometry (GRU, and LSTM and GRU bidirectional), launch counts read
+    around it: K2's GRU backward and K5's backward on a training path."""
+    from vct_torch.core.config import Config
+    from vct_torch.train.engine import Trainer
+
+    counters = _train_counters()
+    totals = dict.fromkeys(counters, 0)
+    ucf50 = {**UCF50, "compute_dtype": "bfloat16"}
+    for rnn_type, bidirectional in (("gru", False), ("lstm", True), ("gru", True)):
+        model = {**ucf50, "rnn_type": rnn_type, "bidirectional": bidirectional}
+        cfg = Config().replace(**{"data.sequence_length": str(T_UCF50),
+                                  **{f"model.{k}": str(v) for k, v in model.items()}})
+        trainer = Trainer(cfg, [f"class_{i}" for i in range(cfg.model.num_classes)])
+        state = trainer.init_state()
+        clips = torch.rand(TRAIN_BATCH, T_UCF50, H, W, 3, generator=gen).cuda()
+        labels = torch.randint(0, cfg.model.num_classes, (TRAIN_BATCH,), generator=gen).cuda()
+        for fn in counters.values():
+            fn.launches = 0
+        loss = trainer._train_step(state, clips, labels, torch.ones(TRAIN_BATCH, device="cuda"))[0]
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in counters.items()}
+        want = _expected_train_launches(model, 1, 1)
+        head = f"{rnn_type} {'bidir' if bidirectional else 'uni'}"
+        print(f"{head} train step: loss {loss.item()}, launches {launches} (expected {want})")
+        if launches != want or not np.isfinite(loss.item()):
+            raise AssertionError(f"{head}: train step launches {launches} != expected {want}")
+        totals = {n: totals[n] + launches[n] for n in totals}
+        del trainer, state
+    torch.cuda.empty_cache()
+    return totals
+
+
+def _train_path(torch, gen, gpu) -> dict:
+    """Both configurations through the train CLI, the kernel/plain hold and
+    the timed step, then a step of each other UCF50 head; returns the summed
+    launches of the CLI runs and those steps."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    totals = dict.fromkeys(_train_counters(), 0)
+    for label, (model, seq_len) in TRAIN_CONFIGS.items():
+        launches = _train_cli(torch, label, model, seq_len)
+        totals = {n: totals[n] + launches[n] for n in totals}
+        _train_hold_and_time(torch, gen, gpu, label, model, seq_len)
+    launches = _train_heads(torch, gen)
+    return {n: totals[n] + launches[n] for n in totals}
+
+
+def _bwd_timing(torch, gen, name, dims) -> dict:
+    """One backward entry point at the main path's shape: time by events and
+    from a CUDA graph, autograd through the plain version (its forward
+    included), the bound and, for LSTM/GRU, cuDNN's backward with the same
+    weights (layer 0's input projection included in the library call only)."""
+    from vct_torch.ops import lstm as ops
+    from vct_torch.ops import selective_scan as k3
+
+    if name == "selective_scan_bwd":
+        B, L, D, N = dims
+        args = _scan_inputs(torch, gen, B, L, D, N)
+        gy = torch.randn(B, L, D, generator=gen).cuda()
+        fn = lambda: k3.selective_scan_bwd(*args, gy)  # noqa: E731
+        plain = lambda: k3.selective_scan_bwd_ref(*args, gy)  # noqa: E731
+        bound, by = _bound_ms(4 * (5 * B * L * D + 4 * B * L * N + 2 * D * N),
+                              SCAN_BWD_FLOPS * B * L * D * N)
+        return {"shape": list(dims), "ms": _events_ms(torch, fn, 20),
+                "device_ms": _graph_ms(torch, fn, 20), "plain_ms": _events_ms(torch, plain, 3),
+                "bound_ms": bound, "bound_by": by, "library_ms": None,
+                "expf_bound_ms": B * L * D * N / SFU_EXP_PER_S * 1e3}
+    cell, kind, _ = name.split("_")
+    n_gates = 4 if cell == "lstm" else 3
+    B, T_, Hd, L = dims
+    L = L if kind == "stack" else 1
+    GH, k = n_gates * Hd, Hd ** -0.5
+    xp, w_hh, b_hh, w_ih, b_ih = _rnn_inputs(torch, gen, n_gates, B, T_, Hd, max(L, 2))
+    w_hh, b_hh, w_ih, b_ih = w_hh[:L], b_hh[:L], w_ih[:L - 1], b_ih[:L - 1]
+    gy = torch.randn(B, T_, Hd, generator=gen).cuda()
+    if kind == "stack":
+        args = (xp, w_hh, b_hh, w_ih, b_ih)
+        y, hs, _ = ops._launch(f"{cell}_stack", n_gates, *args, save=True)
+        fn = lambda: getattr(ops, name)(*args, hs, y, gy)  # noqa: E731
+        plain = lambda: ops.stack_bwd_ref(*args, gy)  # noqa: E731
+    else:
+        args = (xp, w_hh[0], b_hh[0])
+        y, _, _ = ops._launch(f"{cell}_scan", n_gates, *args)
+        fn = lambda: getattr(ops, name)(*args, y, gy)  # noqa: E731
+        plain = lambda: ops.scan_bwd_ref(*args, gy)  # noqa: E731
+    # Bytes: xp0, the weights, the saved outputs and gy read, every gradient
+    # written; operations: per layer the gates' recompute, dr W_hh^T and
+    # dW_hh, and above layer 0 the input parts' recompute, dW_ih and dy.
+    n_w = 2 * L - 1
+    n_bytes = 4 * (2 * B * T_ * GH + (L + 1) * B * T_ * Hd + 2 * n_w * (Hd + 1) * GH)
+    n_ops = 2 * B * T_ * Hd * GH * (3 * L + 3 * (L - 1))
+    bound, by = _bound_ms(n_bytes, n_ops)
+    in_size = 512
+    lib = (torch.nn.LSTM if cell == "lstm" else torch.nn.GRU)(
+        in_size, Hd, num_layers=L, batch_first=True).cuda()
+    x = torch.randn(B, T_, in_size, generator=gen).cuda().requires_grad_(True)
+    with torch.no_grad():
+        for l in range(L):
+            getattr(lib, f"weight_hh_l{l}").copy_(w_hh[l].t())
+            getattr(lib, f"bias_hh_l{l}").copy_(b_hh[l])
+            if l:
+                getattr(lib, f"weight_ih_l{l}").copy_(w_ih[l - 1].t())
+                getattr(lib, f"bias_ih_l{l}").copy_(b_ih[l - 1])
+    out = lib(x)[0]
+    inputs = [x, *lib.parameters()]
+    lib_fn = lambda: torch.autograd.grad(out, inputs, gy, retain_graph=True)  # noqa: E731
+    library_device_ms, via = _library_device_ms(torch, lib_fn)
+    device_ms = _graph_ms(torch, fn, 20)
+    return {"shape": [B, T_, Hd, L], "ms": _events_ms(torch, fn, 20),
+            "device_ms": device_ms, "us_per_step": device_ms / (T_ * L) * 1e3,
+            "plain_ms": _events_ms(torch, plain, 3, warmup=1), "bound_ms": bound, "bound_by": by,
+            "library_ms": _events_ms(torch, lib_fn, 20), "library_device_ms": library_device_ms,
+            "library_device_via": via}
+
+
+def _bwd_rows(torch, gen, launches, errs) -> list[dict]:
+    """The kernels line's backward rows at the training path's shapes: K3's
+    at the deployed Mamba step, K2's and K5's at the bench stack."""
+    shapes = {"selective_scan_bwd": (TRAIN_BATCH, T, 16, 32)}
+    shapes.update({n: (TRAIN_BATCH, T_UCF50, 56, 4) for n in BWD_KERNELS if n != "selective_scan_bwd"})
+    rows = []
+    for name, (source, replaces) in BWD_KERNELS.items():
+        t = _bwd_timing(torch, gen, name, shapes[name])
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches[name], "max_abs_err": errs[name][1],
+                     "max_err_over_max_grad": errs[name][0], **t})
+    return rows
 
 
 def _library_device_ms(torch, fn):
@@ -1099,6 +1623,7 @@ def main(argv: list[str]) -> int:
             "normalize_frames": _check_normalize(torch, gen),
             "selective_scan": _check_selective_scan(torch, gen),
             **_check_rnn(torch, gen)}
+    bwd_errs = _check_backward(torch, gen)
 
     from vct_torch.core.config import ModelConfig
     from vct_torch.models import build_model
@@ -1117,7 +1642,10 @@ def main(argv: list[str]) -> int:
     launches["ssim_pair_scores"] = ssim_launches["ssim_pair_scores"]
     launches["normalize_frames"] = sum(
         c["normalize_frames"] for c in (launches, ssim_launches, rnn_launches))
+    train_launches = _train_path(torch, gen, gpu)
+    print(f"training path launches over both configurations {train_launches}")
     kernels = _kernel_timings(torch, gen, launches, errs, gpu)
+    kernels += _bwd_rows(torch, gen, train_launches, bwd_errs)
     print(json.dumps({"kernels": kernels, "gpu": gpu}))
     print(_gpu_line())  # name, power limit: exactly as nvidia-smi prints them
     print(json.dumps({"ok": True, "device": {

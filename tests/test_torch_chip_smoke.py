@@ -84,3 +84,33 @@ def test_k1_neighbours_hold_the_plans_choice_and_plans_the_kernel_takes(shape):
 def test_main_needs_a_card(argv):
     """Without CUDA the script exits non-zero before any phase."""
     assert chip_smoke.main(argv) == 1
+
+
+def test_training_launches_count_each_kernel_per_pass():
+    """A train step of the Mamba head launches K3 forward and backward once
+    a block; of the LSTM stack K2 forward once and its backward once a
+    layer; of a bidirectional head K5 forward and backward once a layer and
+    direction; nothing else."""
+    mamba, seq = chip_smoke.TRAIN_CONFIGS["deployed_mamba"]
+    want = chip_smoke._expected_train_launches(mamba, 3, 2)
+    assert {n: c for n, c in want.items() if c} == {"selective_scan": 9, "selective_scan_bwd": 6}
+    lstm, _ = chip_smoke.TRAIN_CONFIGS["ucf50_lstm"]
+    want = chip_smoke._expected_train_launches(lstm, 3, 2)
+    assert {n: c for n, c in want.items() if c} == {"lstm_stack": 3, "lstm_stack_bwd": 8}
+    bidir = {**lstm, "rnn_type": "gru", "bidirectional": True}
+    want = chip_smoke._expected_train_launches(bidir, 1, 1)
+    assert {n: c for n, c in want.items() if c} == {"gru_scan": 8, "gru_scan_bwd": 8}
+    assert mamba == chip_smoke.DEPLOYED and seq == chip_smoke.T
+    assert set(want) == set(chip_smoke.RNN_KERNELS) | set(chip_smoke.BWD_KERNELS) | {
+        "selective_scan"}
+
+
+def test_backward_rows_name_their_sources_and_the_vct_backward_they_replace():
+    from pathlib import Path
+
+    root = Path(chip_smoke.__file__).resolve().parent
+    for name, (source, replaces) in chip_smoke.BWD_KERNELS.items():
+        assert (root / source).is_file(), name
+        path, line = replaces.rsplit(":", 1)
+        text = (root / path).read_text().splitlines()[int(line) - 1]
+        assert "def " in text and "bwd" in text, (name, text)

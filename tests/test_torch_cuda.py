@@ -647,3 +647,139 @@ def test_ssim_serving_path_goes_through_the_kernel(cuda_device, sampling):
     raw = torch.from_numpy(_clips((2, 12, 16, 16, 3)))
     idx_cpu = preprocess.sample_indices(raw, T, "ssim")
     assert torch.equal(idx_cpu, preprocess.sample_indices(raw.to(cuda_device), T, "ssim").cpu())
+
+
+# --- backward kernels -------------------------------------------------------
+# Each gradient within 1e-5 of its largest magnitude of autograd through the
+# plain version (f32, other summation orders; 4e-7 of it measured on the
+# card), every backward launch after a NaN fill of shared memory.
+BWD_RTOL = 1e-5
+
+
+def _assert_grads_close(got, want, names):
+    for name, g, w in zip(names, got, want):
+        assert g is not None, name
+        err, scale = (g - w).abs().max().item(), w.abs().max().item()
+        assert err <= BWD_RTOL * scale, f"d{name}: {err} against {BWD_RTOL} x {scale}"
+
+
+def _stale(fn):
+    def wrapped(*args):
+        _build.fill_shared_memory(float("nan"))
+        return fn(*args)
+    return wrapped
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dims", [(4, 60, 16, 32), (3, 70, 20, 1), (2, 33, 5, 24), (2, 40, 16, 33),
+                                  (2, 20, 6, 100)], ids=["deployed", "N1", "N24", "N33", "N100"])
+def test_selective_scan_backward_kernel_matches_plain(cuda_device, dims, reverse):
+    args = _scan_args(*dims, cuda_device)
+    gy = torch.randn(dims[:3], device=cuda_device)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    y = selective_scan(*leaves, reverse=reverse)
+    before = scan_ops.selective_scan_bwd.launches
+    _build.fill_shared_memory(float("nan"))
+    got = torch.autograd.grad(y, leaves, gy)
+    torch.cuda.synchronize()
+    assert scan_ops.selective_scan_bwd.launches == before + 1
+    _assert_grads_close(got, scan_ops.selective_scan_bwd_ref(*args, gy, reverse=reverse),
+                        "u delta A B C".split())
+    again = scan_ops.selective_scan_bwd(*args, gy, reverse=reverse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # two runs bit-equal
+
+
+@pytest.mark.parametrize("dims", [(4, 40, 56, 4), (3, 7, 5, 3), (2, 20, 17, 3), (2, 16, 65, 2),
+                                  (2, 16, 256, 2)], ids=["served", "H5", "H17", "H65", "H256"])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_rnn_backward_kernels_match_plain(cuda_device, monkeypatch, cell, dims):
+    """K2's backward (a launch a layer) and K5's (the one-layer case),
+    against autograd through the plain versions."""
+    monkeypatch.setattr(rnn_ops, "_layer_bwd", _stale(rnn_ops._layer_bwd))
+    n_gates = 4 if cell == "lstm" else 3
+    args = _rnn_args(n_gates, *dims, cuda_device)
+    gy = torch.randn(dims[:3], device=cuda_device)
+    stack_bwd = getattr(rnn_ops, f"{cell}_stack_bwd")
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    before = stack_bwd.launches
+    got = torch.autograd.grad(getattr(rnn_ops, f"{cell}_stack")(*leaves), leaves, gy)
+    torch.cuda.synchronize()
+    assert stack_bwd.launches == before + dims[3]
+    _assert_grads_close(got, rnn_ops.stack_bwd_ref(*args, gy), ("xp0", "w_hh", "b_hh", "w_ih",
+                                                                 "b_ih"))
+    layer = [args[0], args[1][0], args[2][0]]
+    leaves = [a.clone().requires_grad_(True) for a in layer]
+    scan_bwd = getattr(rnn_ops, f"{cell}_scan_bwd")
+    before = scan_bwd.launches
+    got = torch.autograd.grad(getattr(rnn_ops, f"{cell}_scan")(*leaves), leaves, gy)
+    torch.cuda.synchronize()
+    assert scan_bwd.launches == before + 1
+    _assert_grads_close(got, rnn_ops.scan_bwd_ref(*layer, gy), ("xp", "w_hh", "b_hh"))
+    y, _, _ = rnn_ops._launch(f"{cell}_scan", n_gates, *layer)
+    assert all(torch.equal(a, b) for a, b in zip(got, scan_bwd(*layer, y, gy)))
+
+
+@pytest.mark.parametrize("head", [("lstm", False), ("gru", False), ("lstm", True), ("mamba", False),
+                                  ("mamba", True)], ids=lambda h: f"{h[0]}-{'bi' if h[1] else 'uni'}")
+def test_kernel_paths_give_every_parameter_the_plain_gradient(cuda_device, head):
+    """The fault this slice repaired: a loss through a kernel's output had no
+    gradient upstream of it on the card. Now every parameter the head trains
+    gets the plain path's gradient (the declared-but-unread Mamba D none on
+    either path)."""
+    from vct_torch.models.recurrent import GRU, LSTM
+    from vct_torch.models.ssm import ParallelMamba
+
+    rnn_type, bidirectional = head
+    cfg = ModelConfig(cnn_backbone="resnet18", rnn_type=rnn_type, rnn_input_size=8,
+                      hidden_size=6, rnn_layer=3, bidirectional=bidirectional, dropout=0.0,
+                      scan_impl="pallas")
+    model = build_model(cfg, 4, seed=0).train()
+    for p in model.cnn_backbone.parameters():
+        p.requires_grad_(False)
+    x = torch.rand(2, 4, 32, 32, 3, device=cuda_device)
+    grads = {}
+    for impl in ("pallas", "scan"):
+        for m in model.modules():
+            if isinstance(m, (ParallelMamba, LSTM, GRU)):
+                m.scan_impl = impl
+        model.zero_grad(set_to_none=True)
+        model(x).logsumexp(dim=-1).sum().backward()
+        grads[impl] = {n: p.grad for n, p in model.named_parameters() if p.requires_grad}
+    for name, want in grads["scan"].items():
+        got = grads["pallas"][name]
+        if name.endswith(".mixer.D"):
+            assert got is None and want is None
+            continue
+        assert got is not None, name
+        _assert_grads_close([got], [want], [name])
+
+
+def test_finetune_train_step_updates_only_the_unfrozen_backbone(cuda_device):
+    """With ``finetune`` and ``freeze_until``, a train step on the card runs
+    the backbone's backward under bf16 autocast: the frozen prefixes keep
+    their values and get no gradient, every other parameter moves, and the
+    BatchNorm statistics stay as they were."""
+    from vct_torch.core.config import Config
+    from vct_torch.train.engine import Trainer
+
+    cfg = Config().replace(**{
+        "model.cnn_backbone": "resnet18", "model.rnn_type": "gru", "model.rnn_input_size": "8",
+        "model.hidden_size": "6", "model.rnn_layer": "2", "model.scan_impl": "pallas",
+        "model.compute_dtype": "bfloat16", "model.finetune": "true",
+        "model.freeze_until": "conv1,bn1,layer1", "data.sequence_length": "4",
+        "train.optimizer": "sgd", "train.learning_rate": "0.1"})
+    trainer = Trainer(cfg, ["a", "b", "c", "d"])
+    model = trainer.model
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    state = trainer.init_state()
+    x = torch.rand(2, 4, 32, 32, 3, device=cuda_device)
+    loss, _, _ = trainer._train_step(state, x, torch.tensor([0, 3], device=cuda_device),
+                                     torch.ones(2, device=cuda_device))
+    assert torch.isfinite(loss)
+    for name, p in model.named_parameters():
+        frozen = name.startswith("cnn_backbone.") and name.split(".")[1].startswith(
+            ("conv1", "bn1", "layer1"))
+        assert (p.grad is None) == frozen, name
+        assert torch.equal(p, before[name]) == frozen, name
+    for name, buf in model.named_buffers():
+        assert torch.equal(buf, before[name]), name

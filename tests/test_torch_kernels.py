@@ -129,3 +129,30 @@ def test_decode_plan_reads_the_packed_plan(code, N, want):
     p = decode_plan(code, N)
     assert (p["states_per_lane"], p["lanes_per_channel"], p["warps_per_channel"],
             p["state_tiles"], p["block_threads"], p["chunk_steps"]) == want
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dims", [(2, 9, 16, 1), (2, 9, 16, 24), (2, 12, 8, 4)],
+                         ids=["N1", "N24", "small"])
+def test_selective_scan_gradients_match_vct(dims, reverse):
+    """Autograd through the port's K3 op (its plain version on the CPU)
+    against jax.vjp of vct's (the Pallas kernel in interpret mode under its
+    custom_vjp), and the port's ``selective_scan_bwd`` the same; atol = rtol
+    = 1e-5."""
+    import jax
+
+    from vct_torch.ops.selective_scan import selective_scan_bwd
+
+    args = _scan_inputs(*dims)
+    gy = np.random.RandomState(7).randn(*dims[:3]).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: vct_selective_scan(*a, reverse=reverse), *map(jnp.asarray, args))
+    want = vjp(jnp.asarray(gy))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    got = torch.autograd.grad(selective_scan(*leaves, reverse=reverse), leaves,
+                              torch.from_numpy(gy))
+    direct = selective_scan_bwd(*map(torch.from_numpy, args), torch.from_numpy(gy),
+                                reverse=reverse)
+    for name, g, d, w in zip("u delta A B C".split(), got, direct, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5, err_msg=name)
+        assert torch.equal(g, d), name
+    assert selective_scan_bwd.launches == 0  # CPU tensors never reach the kernel

@@ -270,3 +270,71 @@ def test_bridge_is_strict_on_recurrent_leaves():
     del variables["params"]["bias_hh_l1"]
     with pytest.raises(KeyError, match="bias_hh_l1"):
         load_vct_variables(torch_mod, variables)
+
+
+@pytest.mark.parametrize("dims", [(2, 7, 6), (1, 9, 13)], ids=["small", "oddH"])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_scan_gradients_match_vct(cell, dims):
+    """Autograd through K5's op (the plain version on the CPU) against
+    jax.vjp of vct's (interpret-mode kernel under its custom_vjp), and
+    ``*_scan_bwd`` the same; atol = rtol = 1e-5."""
+    args = _layer_args(cell, *dims)
+    gy = np.random.RandomState(5).randn(*dims).astype(np.float32)
+    kernel = {"lstm": vct_lstm.lstm_scan_pallas, "gru": vct_lstm.gru_scan_pallas}[cell]
+    _, vjp = jax.vjp(kernel, *map(jnp.asarray, args))
+    want = vjp(jnp.asarray(gy))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    wrapper = {"lstm": ops.lstm_scan, "gru": ops.gru_scan}[cell]
+    y = wrapper(*leaves)
+    got = torch.autograd.grad(y, leaves, torch.from_numpy(gy))
+    bwd = {"lstm": ops.lstm_scan_bwd, "gru": ops.gru_scan_bwd}[cell]
+    direct = bwd(*map(torch.from_numpy, args), y.detach(), torch.from_numpy(gy))
+    for name, g, d, w in zip(("xp", "w_hh", "b_hh"), got, direct, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **OPS_TOL, err_msg=name)
+        assert torch.equal(g, d), name
+    assert bwd.launches == 0
+
+
+@pytest.mark.parametrize("dims", [(2, 9, 6, 3), (3, 4, 7, 2)], ids=["L3", "oddH_L2"])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_stack_gradients_match_vct(cell, dims):
+    """Autograd through K2's op against jax.vjp of vct's fused-stack op
+    (interpret mode, custom_vjp), and ``*_stack_bwd`` the same; atol = rtol
+    = 1e-5."""
+    args = _stack_args(cell, *dims)
+    gy = np.random.RandomState(6).randn(*dims[:3]).astype(np.float32)
+    kernel = {"lstm": vct_lstm.lstm_stack_pallas, "gru": vct_lstm.gru_stack_pallas}[cell]
+    _, vjp = jax.vjp(kernel, *map(jnp.asarray, args))
+    want = vjp(jnp.asarray(gy))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    wrapper = {"lstm": ops.lstm_stack, "gru": ops.gru_stack}[cell]
+    got = torch.autograd.grad(wrapper(*leaves), leaves, torch.from_numpy(gy))
+    bwd = {"lstm": ops.lstm_stack_bwd, "gru": ops.gru_stack_bwd}[cell]
+    direct = bwd(*map(torch.from_numpy, args), None, None, torch.from_numpy(gy))
+    for name, g, d, w in zip(("xp0", "w_hh", "b_hh", "w_ih", "b_ih"), got, direct, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **OPS_TOL, err_msg=name)
+        assert torch.equal(g, d), name
+    assert bwd.launches == 0
+
+
+@pytest.mark.parametrize("bidirectional", [False, True], ids=["uni", "bidir"])
+@pytest.mark.parametrize("cls_name", ["LSTM", "GRU"])
+def test_rnn_module_gradients_match_vct(cls_name, bidirectional):
+    """Input and per-parameter gradients of the port's LSTM/GRU module
+    (``scan_impl="pallas"``: K2 for the unidirectional stack, K5 per
+    direction otherwise) against jax.vjp of vct's; atol = rtol = 1e-5."""
+    flax_mod, torch_mod = _module_pair(cls_name, num_layers=2, bidirectional=bidirectional,
+                                       scan_impl="pallas")
+    x = _x(2, 7, 5)
+    variables = _perturb(flax_mod.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+    gy = np.random.RandomState(3).randn(2, 7, 12 if bidirectional else 6).astype(np.float32)
+    _, vjp = jax.vjp(lambda p, xx: flax_mod.apply({"params": p}, xx),
+                     jax.tree_util.tree_map(jnp.asarray, variables["params"]), jnp.asarray(x))
+    want_p, want_x = vjp(jnp.asarray(gy))
+    load_vct_variables(torch_mod, variables)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    torch_mod(xt).backward(torch.from_numpy(gy))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_x), **OPS_TOL)
+    for name, p in torch_mod.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(want_p[name]), **OPS_TOL,
+                                   err_msg=name)

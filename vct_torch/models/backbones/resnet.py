@@ -2,7 +2,8 @@
 
 Port of ``vct/models/backbones/resnet.py``: 7x7 stem, BasicBlock/Bottleneck
 stages, global average pool, feature output (no fc). BatchNorm always runs in
-inference mode with its running statistics. Submodule names are the Flax ones
+inference mode with its running statistics, under ``train()`` too (as
+``vct`` keeps its ported backbones at running averages in every mode). Submodule names are the Flax ones
 (``layer1_0.conv1``, ``downsample_conv``, ``downsample_bn``) so
 ``vct_torch.bridge`` maps weights mechanically.
 
@@ -94,6 +95,15 @@ class ResNet(nn.Module):
                 self.blocks.append(name)
                 in_features = width * block.expansion
         self.feature_dim = 512 * block.expansion
+
+    def train(self, mode: bool = True):
+        """Set the mode, but keep every BatchNorm in eval mode: its running
+        statistics, never batch statistics or running-stat updates."""
+        super().train(mode)
+        for m in self.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.eval()
+        return self
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))

@@ -3,7 +3,9 @@
 Port of ``vct/models/layers.py``. Submodules carry the Flax names
 (``adapt1``, ``bn1``, ``fc``, ``cell0_linear`` ...) so ``vct_torch.bridge``
 maps weights mechanically. LayerNorm eps is 1e-5 and GELU is exact
-throughout, as in the reference.
+throughout, as in the reference. Dropout draws its masks from the
+generator its ``generator`` attribute names (the trainer seeds one from
+``train.seed``), or from torch's default one.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from torch import nn
 
 __all__ = [
     "RMSNorm",
+    "Dropout",
     "CanonicalAdapter",
     "AdaptDSL",
     "MulticlassHead",
@@ -37,6 +40,27 @@ class RMSNorm(nn.Module):
         return x * torch.rsqrt(var + self.eps).to(x.dtype) * self.weight
 
 
+class Dropout(nn.Module):
+    """Inverted dropout (``nn.Dropout``'s function) whose masks come from
+    ``self.generator`` when one is set: a ``torch.Generator`` on the input's
+    device. Identity in eval mode or at p = 0."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        if not 0.0 <= p <= 1.0:
+            raise ValueError(f"dropout probability must be in [0, 1], got {p}")
+        self.p = p
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p == 1.0:
+            return x * 0.0
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        return x * keep.to(x.dtype) / (1.0 - self.p)
+
+
 class CanonicalAdapter(nn.Module):
     """x = drop(LN(gelu(W1 x)));  x = drop(LN(gelu(W2 x)));  x = LN(gelu(W3 x))
 
@@ -52,7 +76,7 @@ class CanonicalAdapter(nn.Module):
         self.bn2 = nn.LayerNorm(f // 4, eps=_LN_EPS)
         self.adapt3 = nn.Linear(f // 4, out_size)
         self.bn3 = nn.LayerNorm(out_size, eps=_LN_EPS)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, x):
         x = self.drop(self.bn1(F.gelu(self.adapt1(x))))
@@ -97,7 +121,7 @@ class AdaptDSL(nn.Module):
         for _ in range(1, depth):
             sizes.append(sizes[-1] // factor)
         sizes.append(out_size)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
         self._steps: list[tuple[str, str]] = []
         for i in range(len(sizes) - 1):
             width = sizes[i]
@@ -136,7 +160,7 @@ class MulticlassHead(nn.Module):
         self.bna = nn.LayerNorm(f // 2, eps=_LN_EPS)
         self.fca = nn.Linear(f // 2, f // 4)
         self.bnb = nn.LayerNorm(f // 4, eps=_LN_EPS)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
         self.fcb = nn.Linear(f // 4, num_classes)
 
     def forward(self, x):

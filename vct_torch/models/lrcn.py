@@ -13,7 +13,9 @@ memory (no copy). With ``compute_dtype="bfloat16"`` it runs under bf16
 autocast and its features come back as f32, so the head always runs in f32
 (the reference's promotion of bf16 features against f32 parameters). The
 LSTM/GRU head runs the CUDA recurrences with ``scan_impl="pallas"`` and the
-plain loops otherwise, as ``vct`` maps it.
+plain loops otherwise, as ``vct`` maps it. A backbone none of whose
+parameters requires a gradient (frozen, the default) runs under
+``torch.no_grad``, so training records no graph through it.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ __all__ = ["LRCN", "build_lrcn"]
 
 
 class LRCN(nn.Module):
+    # Trainer's feature cache: features_only / from_features split the forward.
+    supports_feature_cache = True
+
     def __init__(
         self,
         num_classes: int,
@@ -97,6 +102,12 @@ class LRCN(nn.Module):
         b, t = x.shape[0], x.shape[1]
         # (B·T, H, W, 3) -> NCHW view; its strides are channels-last already.
         frames = x.reshape((b * t,) + tuple(x.shape[2:])).permute(0, 3, 1, 2)
+        if not any(p.requires_grad for p in self.cnn_backbone.parameters()):
+            with torch.no_grad():
+                return self._run_backbone(frames, b, t)
+        return self._run_backbone(frames, b, t)
+
+    def _run_backbone(self, frames, b, t):
         if self.dtype == torch.bfloat16:
             with torch.autocast(device_type=frames.device.type, dtype=torch.bfloat16):
                 feats = self.cnn_backbone(frames)

@@ -25,8 +25,8 @@ __all__ = ["SOURCES", "build_dir", "check", "fill_shared_memory", "load_kernels"
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / ".vct_torch_build"
-SOURCES = ("common.cu", "pair_scores.cu", "selective_scan.cu", "lstm.cu", "ssim.cu",
-           "normalize.cu")
+SOURCES = ("common.cu", "pair_scores.cu", "selective_scan.cu", "selective_scan_bwd.cu",
+           "lstm.cu", "lstm_bwd.cu", "ssim.cu", "normalize.cu")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -105,8 +105,16 @@ def _declare(lib) -> None:
     lib.vct_selective_scan_fwd.restype = i
     lib.vct_scan_plan.argtypes = [i, i, i, i, i, i]
     lib.vct_scan_plan.restype = i
-    lib.vct_rnn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.vct_selective_scan_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.vct_selective_scan_bwd.restype = i
+    lib.vct_selective_scan_bwd_scratch.argtypes = [i, i, i, i]
+    lib.vct_selective_scan_bwd_scratch.restype = ll
+    lib.vct_rnn_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.vct_rnn_fwd.restype = i
+    lib.vct_rnn_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.vct_rnn_bwd.restype = i
+    lib.vct_rnn_bwd_scratch.argtypes = [i, i, i, i]
+    lib.vct_rnn_bwd_scratch.restype = ll
     lib.vct_rnn_plan.argtypes = [i, i, i, i]
     lib.vct_rnn_plan.restype = i
     lib.vct_error_string.argtypes = [i]

@@ -1,4 +1,4 @@
-"""K3: the Mamba selective scan, forward.
+"""K3: the Mamba selective scan, forward and backward.
 
 Port of ``vct/ops/selective_scan_pallas.py::selective_scan_pallas`` (the TPU
 kernel ``_scan_kernel``). The CUDA kernel is
@@ -6,10 +6,19 @@ kernel ``_scan_kernel``). The CUDA kernel is
 H100 (the L-step chain and the launch at the deployed shape, the expf rate
 at VideoMamba's) and how its design meets that: a channel's states spread
 across lanes, S states a lane, by a plan chosen from the shapes
-(``plan``). Any N. Forward only: the backward comes with the training slice.
+(``plan``). Any N.
 
-``selective_scan`` dispatches by device: a CPU tensor goes to the plain
-PyTorch version ``selective_scan_ref``, a CUDA tensor to the kernel.
+The backward is ``selective_scan_bwd``, the kernel of
+``vct_torch/csrc/selective_scan_bwd.cu`` (a reverse-time scan that recomputes
+h from checkpoints, then sums its per-block partials of dA, dB and dC in a
+second pass, so two runs are bit-equal); ``vct`` has no Pallas kernel there
+(its custom_vjp differentiates the associative scan). On CUDA,
+``selective_scan`` records an autograd node whose backward launches it when
+an input requires a gradient.
+
+Both dispatch by device: a CPU tensor goes to the plain PyTorch version
+(``selective_scan_ref``, which autograd differentiates;
+``selective_scan_bwd_ref``), a CUDA tensor to the kernel.
 """
 
 from __future__ import annotations
@@ -20,7 +29,8 @@ import torch
 
 from vct_torch.ops import _build
 
-__all__ = ["plan", "selective_scan", "selective_scan_ref"]
+__all__ = ["plan", "selective_scan", "selective_scan_bwd", "selective_scan_bwd_ref",
+           "selective_scan_ref"]
 
 _MAX_GRID_Y = 65535
 
@@ -120,33 +130,105 @@ def _launch(u, delta, A, B, C, reverse: bool, code: int) -> torch.Tensor:
     return y
 
 
-def selective_scan(u, delta, A, B, C, reverse: bool = False) -> torch.Tensor:
-    """Drop-in for ``vct_torch.models.ssm.selective_scan`` (impl='pallas').
-
-    On CUDA every input must be f32, contiguous and on u's device, and batch
-    at most 65535; the kernel runs under ``plan``'s choice, or this raises.
-    """
-    _validate(u, delta, A, B, C)
-    if u.device.type == "cpu":
-        return selective_scan_ref(u, delta, A, B, C, reverse=reverse)
-    if u.device.type != "cuda":
-        raise RuntimeError(f"selective_scan: no kernel for device {u.device}")
-    tensors = {"u": u, "delta": delta, "A": A, "B": B, "C": C}
-    for name, t in tensors.items():
-        if t.device != u.device:
-            raise ValueError(f"selective_scan: {name} is on {t.device}, u on {u.device}")
+def _check_cuda(name, tensors: dict) -> None:
+    """Raise unless every tensor is an f32, contiguous CUDA tensor on one device."""
+    first = next(iter(tensors.values()))
+    if first.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {first.device}")
+    for tname, t in tensors.items():
+        if t.device != first.device:
+            raise ValueError(f"{name}: {tname} is on {t.device}, u on {first.device}")
         if t.dtype != torch.float32:
-            raise TypeError(f"the selective_scan kernel takes f32, {name} is {t.dtype}")
+            raise TypeError(f"the {name} kernel takes f32, {tname} is {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"the selective_scan kernel takes contiguous tensors, {name} is not")
-    batch, L, D = u.shape
-    if batch > _MAX_GRID_Y:
-        raise ValueError(f"the selective_scan kernel takes batch <= {_MAX_GRID_Y}, got {batch}")
+            raise ValueError(f"the {name} kernel takes contiguous tensors, {tname} is not")
+    if first.shape[0] > _MAX_GRID_Y:
+        raise ValueError(f"the {name} kernel takes batch <= {_MAX_GRID_Y}, got {first.shape[0]}")
+
+
+def _forward(u, delta, A, B, C, reverse: bool) -> torch.Tensor:
+    """The counted forward launch on checked CUDA tensors."""
     if u.numel() == 0:
         return torch.empty_like(u)
+    batch, L, D = u.shape
     y = _launch(u, delta, A, B, C, reverse, plan_code(batch, D, A.shape[1]))
     selective_scan.launches += 1
     return y
 
 
+class _SelectiveScan(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, reverse):
+        ctx.save_for_backward(u, delta, A, B, C)
+        ctx.reverse = reverse
+        return _forward(u, delta, A, B, C, reverse)
+
+    @staticmethod
+    def backward(ctx, gy):
+        grads = selective_scan_bwd(*ctx.saved_tensors, gy.contiguous(), reverse=ctx.reverse)
+        return (*grads, None)
+
+
+def selective_scan(u, delta, A, B, C, reverse: bool = False) -> torch.Tensor:
+    """Drop-in for ``vct_torch.models.ssm.selective_scan`` (impl='pallas').
+
+    On CUDA every input must be f32, contiguous and on u's device, and batch
+    at most 65535; the kernel runs under ``plan``'s choice, or this raises.
+    Where an input requires a gradient, the result's backward is
+    ``selective_scan_bwd``.
+    """
+    _validate(u, delta, A, B, C)
+    if u.device.type == "cpu":
+        return selective_scan_ref(u, delta, A, B, C, reverse=reverse)
+    args = (u, delta, A, B, C)
+    _check_cuda("selective_scan", dict(zip(("u", "delta", "A", "B", "C"), args)))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _SelectiveScan.apply(*args, reverse)
+    return _forward(*args, reverse)
+
+
+def selective_scan_bwd_ref(u, delta, A, B, C, gy, reverse: bool = False):
+    """Plain version of the backward: autograd through ``selective_scan_ref``.
+    Returns (du, ddelta, dA, dB, dC)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (u, delta, A, B, C)]
+        y = selective_scan_ref(*leaves, reverse=reverse)
+        return torch.autograd.grad(y, leaves, gy)
+
+
+def selective_scan_bwd(u, delta, A, B, C, gy, reverse: bool = False):
+    """K3 backward: (du, ddelta, dA, dB, dC) of ``selective_scan(u, delta, A,
+    B, C, reverse)`` against its output gradient gy (B, L, D). A CPU tensor
+    goes to ``selective_scan_bwd_ref``; on CUDA the kernel runs (the same
+    checks as the forward) or this raises."""
+    _validate(u, delta, A, B, C)
+    if tuple(gy.shape) != tuple(u.shape):
+        raise ValueError(f"selective_scan_bwd wants gy of shape {tuple(u.shape)}, "
+                         f"got {tuple(gy.shape)}")
+    if u.device.type == "cpu":
+        return selective_scan_bwd_ref(u, delta, A, B, C, gy, reverse=reverse)
+    tensors = dict(zip(("u", "delta", "A", "B", "C", "gy"), (u, delta, A, B, C, gy)))
+    _check_cuda("selective_scan_bwd", tensors)
+    batch, L, D = u.shape
+    N = A.shape[1]
+    grads = [torch.empty_like(t) for t in (u, delta, A, B, C)]
+    if u.numel() == 0 or N == 0:
+        return tuple(g.zero_() for g in grads)
+    lib = _build.load_kernels()
+    scratch = torch.empty(lib.vct_selective_scan_bwd_scratch(batch, L, D, N),
+                          dtype=torch.float32, device=u.device)
+    with torch.cuda.device(u.device):
+        err = lib.vct_selective_scan_bwd(
+            *(t.data_ptr() for t in (u, delta, A, B, C, gy)),
+            *(g.data_ptr() for g in grads), scratch.data_ptr(),
+            batch, L, D, N, int(reverse), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, err, "selective_scan_bwd kernel launch")
+    selective_scan_bwd.launches += 1
+    return tuple(grads)
+
+
 selective_scan.launches = 0
+selective_scan_bwd.launches = 0

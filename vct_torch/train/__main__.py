@@ -1,0 +1,85 @@
+"""Training entry point: ``python -m vct_torch.train [--config file]
+[--device cpu] [--a.b v ...]``, the port of ``vct/train/__main__.py``.
+
+Synthesize the dataset (``--data.synthetic true``), split it, build the
+model on the card (or on ``--device``), train with the configured loss,
+save the checkpoint and print the reference-compatible metric block.
+Real-dataset ingest and ``data.stream`` are not ported yet (ROADMAP Queue 1
+item 3) and raise.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from vct_torch.core.config import Config, load_config, parse_cli_overrides
+from vct_torch.data.batcher import train_test_split
+from vct_torch.data.synthetic import generate_dummy_data
+from vct_torch.train.checkpoint import save_checkpoint
+from vct_torch.train.engine import Trainer, compute_class_weights
+
+
+def load_training_data(cfg: Config):
+    """Returns (x, y, class_names)."""
+    if not cfg.data.synthetic:
+        raise NotImplementedError("dataset ingest is not ported to vct_torch yet (ROADMAP "
+                                  "Queue 1 item 3); pass --data.synthetic true")
+    return generate_dummy_data(
+        num_samples=cfg.data.synthetic_samples,
+        sequence_length=cfg.data.sequence_length,
+        height=cfg.data.img_height,
+        width=cfg.data.img_width,
+        num_classes=cfg.model.num_classes,
+        classif_mode=cfg.model.classif_mode,
+        seed=cfg.train.seed,
+    )
+
+
+def _pop_option(argv: list, name: str):
+    """Remove ``name VALUE`` from argv; return VALUE (None if absent)."""
+    if name not in argv:
+        return None
+    i = argv.index(name)
+    if i + 1 >= len(argv):
+        raise SystemExit(f"{name} requires an argument")
+    value = argv[i + 1]
+    del argv[i : i + 2]
+    return value
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    config_path = _pop_option(argv, "--config")
+    device = _pop_option(argv, "--device")  # default: the card
+    cfg = load_config(config_path, parse_cli_overrides(argv))
+    if cfg.data.stream and not cfg.data.synthetic:
+        raise NotImplementedError("data.stream is not ported to vct_torch yet (ROADMAP "
+                                  "Queue 1 item 3)")
+
+    x, y, class_names = load_training_data(cfg)
+    x_train, x_test, y_train, y_test = train_test_split(
+        x, y, cfg.data.val_fraction, cfg.data.split_seed
+    )
+    print(f"Train: {x_train.shape}, Test: {x_test.shape}, classes: {class_names}")
+
+    weights = None
+    if cfg.train.weighted_loss:
+        weights = compute_class_weights(y_train, cfg.model.num_classes, cfg.model.classif_mode)
+        print("class weights:", weights)
+
+    trainer = Trainer(cfg, class_names, class_weights=weights, device=device)
+    state = trainer.init_state()
+    # The held-out split drives the plateau scheduler and the patience stop.
+    val = (x_test, y_test) if (
+        cfg.train.lr_plateau_factor or cfg.train.early_stop_patience
+    ) else None
+    state, run = trainer.fit(state, x_train, y_train, val=val)
+    if cfg.train.save_model:
+        path = save_checkpoint(cfg.train.model_path, state.model.state_dict(), cfg, class_names)
+        print(f"Model saved to {path}")
+    trainer.evaluate(state, x_test, y_test, run=run)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
