@@ -65,9 +65,13 @@ line):
    through the plain versions, each gradient within 1e-5 of its largest
    magnitude, each launch after the NaN fill: K3 at the deployed step both
    directions, VideoMamba's width and N = 1, 24, 64, 100; the LSTM and GRU
-   stacks at the bench stack, a request, the default width and H = 5, 17,
-   65, 256; K5 at the bench shape both directions; two runs and a CUDA-graph
-   replay bit-equal;
+   stacks, each shape printed with its backward design (checked:
+   "registers" for H <= 64, "columns" above), at the bench stack, a
+   request, the default width, H = 1, 5, 17, 64 (the register design's
+   widest), T=130 over three chunks, and H = 65, 256; K5 at the bench shape
+   both directions; two runs and a CUDA-graph replay bit-equal; and every
+   register-design instance of the backward must report 0 spill bytes in
+   the build's ptxas log;
 8. the Mamba path — the deployed config (resnet50 bf16 backbone, 3 Mamba
    blocks, rnn_input 8, T=60, 80x80, scan_impl "pallas") with seeded
    weights serves three requests of four decoded videos each through
@@ -111,14 +115,16 @@ line):
     launches, error, time, plain time, bound and, for K2/K5, the design,
     ``us_per_step`` (device time over T*L) and cuDNN's ``nn.LSTM`` /
     ``nn.GRU`` time (``library_ms`` by events; ``library_device_ms`` replayed
-    from a CUDA graph, or the median of 5 event runs where capture fails,
-    as ``library_device_via`` says), for K3 its plan, ``us_per_step``
+    from a CUDA graph or, where capture fails (cuDNN's LSTM backward at
+    T = 130), the time its kernels keep the card busy under
+    ``torch.profiler``, as ``library_device_via`` says), for K3 its plan, ``us_per_step``
     (device time over L), ``expf_bound_ms`` (one expf a state and step
     at the SFUs' rate) and ``launch_ms`` (the launch without the wrapper's
     checks, by events), and a line of extra timings at the other shapes,
-    with K3's device time under S = 1 and 2, each with the plan's 128-thread
-    blocks and 64-step chunks, 64- or 256-thread blocks, or 32-step chunks,
-    at five shapes (``selective_scan_plans``), and K4's device time under
+    with the LSTM stack's backward at T = 130 beside cuDNN's
+    (``lstm_stack_bwd_T130``), K3's device time under S = 1 and 2, each
+    with the plan's 128-thread blocks and 64-step chunks, 64- or 256-thread
+    blocks, or 32-step chunks, at five shapes (``selective_scan_plans``), and K4's device time under
     its plan and, for each K, the two band heights whose block counts lie
     either side of two an SM, each checked bit-equal first, at the three
     main-path shapes and one decoded 320x240 video
@@ -136,7 +142,11 @@ line):
     ``k1_timings`` of the package at ROOT. The backward rows (launches from
     the training path) carry the time of the whole backward entry point,
     autograd through the plain version as ``plain_ms``, and for LSTM/GRU
-    cuDNN's backward alone as ``library_ms``.
+    cuDNN's backward alone as ``library_ms``, and both timed by the same
+    profiler union as ``device_busy_ms`` and ``library_busy_ms`` (one method
+    for both where cuDNN's capture fails); ``python3 chip_smoke.py
+    --bwd-timing ROOT`` prints only the K2/K5 backward entry points' times
+    (``bwd_timings``) for the package at ROOT, an older checkout's too.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -144,6 +154,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -687,9 +698,13 @@ BWD_RTOL = 1e-5
 # and N = 1, 24, 64, 100 at the deployed widths of a request.
 BWD_SCAN_SHAPES = [(32, T, 16, 32), (2, 256, 2048, 16)] + [(4, T, 16, n) for n in (1, 24, 64, 100)]
 # K2 backward shapes (B, T, H, L): the bench stack, a request, the default
-# width; odd widths H = 5 and 17, and H = 65 and 256 (W_hh read through L2).
+# width; the register design's edges H = 1, 5, 17 (odd), 64 (its widest
+# plan) and T = 130 (three chunks); H = 65 and 256 ("columns", W_hh read
+# through L2 at 256).
+BWD_LONG_T = 130
 BWD_RNN_SHAPES = [(32, 40, 56, 4), (4, 40, 56, 4), (32, 60, 32, 3), (3, 7, 5, 3), (2, 20, 17, 3),
-                  (2, 16, 65, 2), (2, 16, 256, 2)]
+                  (2, 16, 1, 2), (2, 16, 64, 4), (2, BWD_LONG_T, 17, 3), (2, 16, 65, 2),
+                  (2, 16, 256, 2)]
 # The backward entry points and the vct custom_vjp backward each replaces
 # (plain JAX there, no Pallas kernel).
 BWD_KERNELS = {
@@ -700,6 +715,21 @@ BWD_KERNELS = {
     "lstm_scan_bwd": ("vct_torch/csrc/lstm_bwd.cu", "vct/ops/lstm_pallas.py:343"),
     "gru_scan_bwd": ("vct_torch/csrc/lstm_bwd.cu", "vct/ops/lstm_pallas.py:343"),
 }
+
+
+def _bwd_spills(log: str) -> dict:
+    """Spill-store bytes ptxas reports for each register-design instance of
+    the backward (``rnn_bwd_reg_kernel<G, KU, S, NQ>``): the library builds
+    only those the design takes. Raises if the log holds none."""
+    found = {}
+    for line in _ptxas_lines(log):
+        m = re.search(r"rnn_bwd_reg_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", line)
+        if m:
+            found[tuple(map(int, m.groups()))] = int(re.search(r"(\d+) bytes spill stores",
+                                                               line).group(1))
+    if not found:
+        raise AssertionError("no ptxas line for a backward register instance")
+    return found
 
 
 def _grads_close(torch, what, got, want, names) -> tuple[float, float]:
@@ -792,7 +822,11 @@ def _check_backward(torch, gen) -> dict:
                 err = note(f"{cell}_stack_bwd", _grads_close(
                     torch, f"{cell}_stack_bwd {(B, T_, Hd, L)}", got, want,
                     ("xp0", "w_hh", "b_hh", "w_ih", "b_ih")))
-                print(f"  {cell}_stack_bwd B,T,H,L={(B, T_, Hd, L)}: max err / max |grad| {err}")
+                design = ops.bwd_design(T_, Hd, n_gates)
+                if design != ("registers" if Hd <= 64 else "columns"):
+                    raise AssertionError(f"{cell}_stack_bwd H={Hd}: took the {design} design")
+                print(f"  {cell}_stack_bwd B,T,H,L={(B, T_, Hd, L)}: design {design}, "
+                      f"max err / max |grad| {err}")
                 if (B, T_, Hd) == (32, 40, 56):
                     y, hs, _ = ops._launch(f"{cell}_stack", n_gates, *args, save=True)
                     bwd = getattr(ops, f"{cell}_stack_bwd")
@@ -1313,7 +1347,10 @@ def _bwd_timing(torch, gen, name, dims) -> dict:
     """One backward entry point at the main path's shape: time by events and
     from a CUDA graph, autograd through the plain version (its forward
     included), the bound and, for LSTM/GRU, cuDNN's backward with the same
-    weights (layer 0's input projection included in the library call only)."""
+    weights. cuDNN's layer 0 takes x (B, T, H) through its own W_ih, so
+    the library call also forms dx and dW_ih of that projection, two
+    (B*T, H) x (H, G*H)-sized products (as much as one layer's dy and dW_ih
+    here) that the entry point leaves to its caller."""
     from vct_torch.ops import lstm as ops
     from vct_torch.ops import selective_scan as k3
 
@@ -1354,10 +1391,9 @@ def _bwd_timing(torch, gen, name, dims) -> dict:
     n_bytes = 4 * (2 * B * T_ * GH + (L + 1) * B * T_ * Hd + 2 * n_w * (Hd + 1) * GH)
     n_ops = 2 * B * T_ * Hd * GH * (3 * L + 3 * (L - 1))
     bound, by = _bound_ms(n_bytes, n_ops)
-    in_size = 512
     lib = (torch.nn.LSTM if cell == "lstm" else torch.nn.GRU)(
-        in_size, Hd, num_layers=L, batch_first=True).cuda()
-    x = torch.randn(B, T_, in_size, generator=gen).cuda().requires_grad_(True)
+        Hd, Hd, num_layers=L, batch_first=True).cuda()
+    x = torch.randn(B, T_, Hd, generator=gen).cuda().requires_grad_(True)
     with torch.no_grad():
         for l in range(L):
             getattr(lib, f"weight_hh_l{l}").copy_(w_hh[l].t())
@@ -1370,11 +1406,13 @@ def _bwd_timing(torch, gen, name, dims) -> dict:
     lib_fn = lambda: torch.autograd.grad(out, inputs, gy, retain_graph=True)  # noqa: E731
     library_device_ms, via = _library_device_ms(torch, lib_fn)
     device_ms = _graph_ms(torch, fn, 20)
-    return {"shape": [B, T_, Hd, L], "ms": _events_ms(torch, fn, 20),
+    return {"shape": [B, T_, Hd, L], "design": ops.bwd_design(T_, Hd, n_gates),
+            "ms": _events_ms(torch, fn, 20),
             "device_ms": device_ms, "us_per_step": device_ms / (T_ * L) * 1e3,
             "plain_ms": _events_ms(torch, plain, 3, warmup=1), "bound_ms": bound, "bound_by": by,
             "library_ms": _events_ms(torch, lib_fn, 20), "library_device_ms": library_device_ms,
-            "library_device_via": via}
+            "library_device_via": via, "device_busy_ms": _busy_ms(torch, fn, 20),
+            "library_busy_ms": _busy_ms(torch, lib_fn, 20)}
 
 
 def _bwd_rows(torch, gen, launches, errs) -> list[dict]:
@@ -1393,14 +1431,41 @@ def _bwd_rows(torch, gen, launches, errs) -> list[dict]:
 
 def _library_device_ms(torch, fn):
     """cuDNN's device time: its calls replayed from a CUDA graph, as for the
-    kernels, or, where capture fails on the card, the median of 5 event
-    timings. Returns (ms, how)."""
+    kernels, or, where capture fails on the card (cuDNN's LSTM backward at
+    T = 130), the time its kernels keep the card busy under
+    ``torch.profiler``: the
+    union of their intervals over 20 calls, per call (cuDNN's kernels may
+    overlap, so their summed times would count a shared interval twice).
+    Returns (ms, how)."""
     try:
         return _graph_ms(torch, fn, 20), "cuda_graph"
     except RuntimeError:
         torch.cuda.synchronize()
-        runs = sorted(_events_ms(torch, fn, 20) for _ in range(5))
-        return runs[2], "median_of_5_events"
+        return _busy_ms(torch, fn, 20), "profiler_kernel_union"
+
+
+def _busy_ms(torch, fn, calls: int) -> float:
+    """Device time a call of ``fn``: the union of the intervals of every
+    CUDA kernel, copy and set ``torch.profiler`` records over ``calls``
+    calls, over ``calls``. Raises if the profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3 / calls
 
 
 def _rnn_timing(torch, gen, ops, cell, kind, B, T_, Hd, L, in_size=512):
@@ -1573,6 +1638,8 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
         "lstm_stack_H65_L4": _rnn_timing(torch, gen, rnn_ops, "lstm", "stack", 32, T_UCF50, 65, 4),
         "lstm_stack_H256_L2": _rnn_timing(torch, gen, rnn_ops, "lstm", "stack", 2, 16, 256, 2,
                                           in_size=256),
+        "lstm_stack_bwd_T130": _bwd_timing(torch, gen, "lstm_stack_bwd",
+                                           (TRAIN_BATCH, BWD_LONG_T, 56, 4)),
     }, "gpu": gpu}
     print(json.dumps(extra))
     return kernels
@@ -1589,9 +1656,40 @@ def k1_timings(torch, root: Path) -> dict:
             "root": str(root), "gpu": _gpu_line()}
 
 
+def bwd_timings(torch, root: Path) -> dict:
+    """The K2/K5 backward entry points at the training path's shape (the
+    bench stack; K5 its first layer), and the LSTM stack's at T =
+    BWD_LONG_T (three staged chunks), by events and from a CUDA graph, for
+    the ``vct_torch`` package at ``root``: this checkout's or an older
+    one's. Uses only the entry points and the forward's ``_launch``."""
+    sys.path.insert(0, str(root))
+    from vct_torch.ops import lstm as ops
+
+    gen = torch.Generator().manual_seed(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = {}
+    cases = [(n, T_UCF50) for n in BWD_KERNELS if n != "selective_scan_bwd"]
+    for name, T_ in cases + [("lstm_stack_bwd", BWD_LONG_T)]:
+        cell, kind, _ = name.split("_")
+        n_gates = 4 if cell == "lstm" else 3
+        xp, w_hh, b_hh, w_ih, b_ih = _rnn_inputs(torch, gen, n_gates, TRAIN_BATCH, T_, 56, 4)
+        gy = torch.randn(TRAIN_BATCH, T_, 56, generator=gen).cuda()
+        if kind == "stack":
+            y, hs, _ = ops._launch(f"{cell}_stack", n_gates, xp, w_hh, b_hh, w_ih, b_ih, save=True)
+            fn = lambda: getattr(ops, name)(xp, w_hh, b_hh, w_ih, b_ih, hs, y, gy)  # noqa: E731
+        else:
+            args = (xp, w_hh[0], b_hh[0])
+            y, _, _ = ops._launch(f"{cell}_scan", n_gates, *args)
+            fn = lambda: getattr(ops, name)(*args, y, gy)  # noqa: E731
+        rows[name if T_ == T_UCF50 else f"{name}_T{T_}"] = {
+            "ms": _events_ms(torch, fn, 20), "device_ms": _graph_ms(torch, fn, 20)}
+    return {"bwd_timings": rows, "root": str(root), "gpu": _gpu_line()}
+
+
 def main(argv: list[str]) -> int:
-    """With no arguments, every phase; with ``--k1-timing [ROOT]``, only
-    ``k1_timings`` of the package at ROOT (default: this checkout)."""
+    """With no arguments, every phase; with ``--k1-timing [ROOT]`` or
+    ``--bwd-timing [ROOT]``, only ``k1_timings`` or ``bwd_timings`` of the
+    package at ROOT (default: this checkout)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1599,8 +1697,9 @@ def main(argv: list[str]) -> int:
               file=sys.stderr)
         return 1
     here = Path(__file__).resolve().parent
-    if argv[:1] == ["--k1-timing"]:
-        print(json.dumps(k1_timings(torch, Path(argv[1]).resolve() if argv[1:] else here)))
+    if argv[:1] in (["--k1-timing"], ["--bwd-timing"]):
+        timings = k1_timings if argv[0] == "--k1-timing" else bwd_timings
+        print(json.dumps(timings(torch, Path(argv[1]).resolve() if argv[1:] else here)))
         return 0
     sys.path.insert(0, str(here))
     from vct_torch.ops import _build
@@ -1613,9 +1712,13 @@ def main(argv: list[str]) -> int:
     t0 = time.perf_counter()
     _build.load_kernels()
     print(f"build: {time.perf_counter() - t0:.2f} s into {_build.build_dir()}", flush=True)
-    log = _build.build_dir() / "build.log"
-    if log.is_file():
-        print("\n".join(_ptxas_lines(log.read_text())))
+    log = (_build.build_dir() / "build.log").read_text()
+    print("\n".join(_ptxas_lines(log)))
+    spills = _bwd_spills(log)
+    spilled = {k: v for k, v in spills.items() if v}
+    print(f"K2/K5 backward: {len(spills)} register-design instances, spill bytes {spilled or 0}")
+    if spilled:
+        raise AssertionError(f"backward register instances spill: {spilled}")
 
     gen = torch.Generator().manual_seed(0)
     errs = {"pair_scores": _check_pair_scores(torch, gen),

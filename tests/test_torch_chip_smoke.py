@@ -34,6 +34,28 @@ def test_ptxas_lines_name_each_kernel_with_its_registers_and_spills():
             and "0 bytes spill stores" in norm)
 
 
+# The backward's register kernel as ptxas names it: <G, KU, S, NQ>.
+_BWD_LOG = """== lstm_bwd.cu (rc 0)
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__c67ee736_11_lstm_bwd_cu_2819a04d18rnn_bwd_reg_kernelILi4ELi2ELi8ELi7EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_S3_ii' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__c67ee736_11_lstm_bwd_cu_2819a04d18rnn_bwd_reg_kernelILi4ELi2ELi8ELi7EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_S3_ii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 167 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__c67ee736_11_lstm_bwd_cu_2819a04d18rnn_bwd_reg_kernelILi4ELi4ELi8ELi8EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_S3_ii' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__c67ee736_11_lstm_bwd_cu_2819a04d18rnn_bwd_reg_kernelILi4ELi4ELi8ELi8EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_S3_ii
+    24 bytes stack frame, 24 bytes spill stores, 24 bytes spill loads
+ptxas info    : Used 254 registers, used 1 barriers, 24 bytes cumulative stack size
+"""
+
+
+def test_backward_spill_check_reads_every_register_instance():
+    """The spill check finds each backward register instance by its
+    template arguments and reports its spill-store bytes, and fails on a
+    log that holds none."""
+    assert chip_smoke._bwd_spills(_BWD_LOG) == {(4, 2, 8, 7): 0, (4, 4, 8, 8): 24}
+    with pytest.raises(AssertionError, match="no ptxas line"):
+        chip_smoke._bwd_spills(_BWD_LOG.replace("rnn_bwd_reg_kernel", "rnn_reg_kernel"))
+
+
 def test_bound_is_the_larger_of_bytes_and_operations():
     t, by = chip_smoke._bound_ms(chip_smoke.HBM_BYTES_PER_S * 1e-3, 0.0)
     assert by == "bytes" and t == pytest.approx(1.0)

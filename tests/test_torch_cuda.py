@@ -719,6 +719,104 @@ def test_rnn_backward_kernels_match_plain(cuda_device, monkeypatch, cell, dims):
     assert all(torch.equal(a, b) for a, b in zip(got, scan_bwd(*layer, y, gy)))
 
 
+def _check_rnn_backward(cell, dims, device):
+    """K2's backward (a stack of dims[3] layers) and K5's (its first layer)
+    through autograd against the plain versions."""
+    n_gates = 4 if cell == "lstm" else 3
+    args = _rnn_args(n_gates, *dims, device)
+    gy = torch.randn(dims[:3], device=device)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    got = torch.autograd.grad(getattr(rnn_ops, f"{cell}_stack")(*leaves), leaves, gy)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, rnn_ops.stack_bwd_ref(*args, gy), ("xp0", "w_hh", "b_hh", "w_ih",
+                                                                 "b_ih"))
+    layer = [args[0], args[1][0], args[2][0]]
+    leaves = [a.clone().requires_grad_(True) for a in layer]
+    got = torch.autograd.grad(getattr(rnn_ops, f"{cell}_scan")(*leaves), leaves, gy)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, rnn_ops.scan_bwd_ref(*layer, gy), ("xp", "w_hh", "b_hh"))
+
+
+@pytest.mark.parametrize("H", [1, 5, 16, 17, 33, 56, 64])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_rnn_backward_register_design_matches_plain(cuda_device, monkeypatch, cell, H):
+    """The register backward at widths from one unit to its widest plan,
+    odd ones included (dpre rows padded in shared memory), stack and one
+    layer, each launch after NaN was left in every SM's shared memory."""
+    monkeypatch.setattr(rnn_ops, "_layer_bwd", _stale(rnn_ops._layer_bwd))
+    assert rnn_ops.bwd_design(20, H, 4 if cell == "lstm" else 3) == "registers"
+    _check_rnn_backward(cell, (3, 20, H, 3), cuda_device)
+
+
+@pytest.mark.parametrize("H", [17, 64])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_rnn_backward_register_design_over_chunks(cuda_device, monkeypatch, cell, H):
+    """T = 130: three staged chunks of steps, the LSTM's c at each later
+    chunk's start walked before the first."""
+    monkeypatch.setattr(rnn_ops, "_layer_bwd", _stale(rnn_ops._layer_bwd))
+    _check_rnn_backward(cell, (2, 130, H, 2), cuda_device)
+
+
+def test_rnn_backward_design_is_pinned(cuda_device):
+    """"registers" at every H <= 64, "columns" above."""
+    for n_gates in (4, 3):
+        for H in range(1, 65):
+            assert rnn_ops.bwd_design(40, H, n_gates) == "registers", H
+        for H in (65, 256):
+            assert rnn_ops.bwd_design(40, H, n_gates) == "columns", H
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_rnn_backward_runs_and_graph_replay_are_bit_equal(cuda_device, cell):
+    """The bench stack's backward twice and replayed from a CUDA graph, each
+    after a NaN fill: fixed summation orders, no atomics."""
+    n_gates = 4 if cell == "lstm" else 3
+    args = _rnn_args(n_gates, 32, 40, 56, 4, cuda_device)
+    gy = torch.randn(32, 40, 56, device=cuda_device)
+    y, hs, _ = rnn_ops._launch(f"{cell}_stack", n_gates, *args, save=True)
+    bwd = getattr(rnn_ops, f"{cell}_stack_bwd")
+    runs = []
+    for _ in range(2):
+        _build.fill_shared_memory(float("nan"))
+        runs.append([t.clone() for t in bwd(*args, hs, y, gy)])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bwd(*args, hs, y, gy)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = bwd(*args, hs, y, gy)
+    _build.fill_shared_memory(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    runs.append([t.clone() for t in out])
+    assert all(torch.equal(a, b) for run in runs[1:] for a, b in zip(runs[0], run))
+
+
+@pytest.mark.parametrize("H", [5, 56, 64, 65])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_rnn_backward_kernel_matches_layer_ref(cuda_device, cell, H):
+    """One launch against ``layer_bwd_ref``, the same contract in plain
+    PyTorch, after a NaN fill, both designs: dx, dR and the bias sums within
+    BWD_RTOL of their largest magnitudes."""
+    n_gates = 4 if cell == "lstm" else 3
+    B, T, GH = 3, 30, n_gates * H
+    gen = torch.Generator().manual_seed(H)
+    x = torch.randn(B, T, GH, generator=gen).to(cuda_device)
+    h = torch.randn(B, T, H, generator=gen).tanh().to(cuda_device)
+    w_hh = (torch.rand(H, GH, generator=gen) * 2 - 1).to(cuda_device) * H ** -0.5
+    bx, b_hh = (torch.randn(2, GH, generator=gen) * 0.1).to(cuda_device)
+    r, dy = h @ w_hh, torch.randn(B, T, H, generator=gen).to(cuda_device)
+    want = [torch.empty_like(x), torch.empty_like(x), x.new_empty(2, B, GH)]
+    rnn_ops.layer_bwd_ref(n_gates, x, r, bx, b_hh, h, w_hh, dy, *want)
+    got = [torch.empty_like(t) for t in want]
+    _build.fill_shared_memory(float("nan"))
+    rnn_ops._layer_bwd(n_gates, x, r, bx, b_hh, h, w_hh, dy, *got)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want, ("x", "R", "b"))
+
+
 @pytest.mark.parametrize("head", [("lstm", False), ("gru", False), ("lstm", True), ("mamba", False),
                                   ("mamba", True)], ids=lambda h: f"{h[0]}-{'bi' if h[1] else 'uni'}")
 def test_kernel_paths_give_every_parameter_the_plain_gradient(cuda_device, head):

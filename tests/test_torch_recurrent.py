@@ -317,6 +317,113 @@ def test_stack_gradients_match_vct(cell, dims):
     assert bwd.launches == 0
 
 
+def _layer_outputs(cell, xp0, w_hh, b_hh, w_ih, b_ih):
+    """Every layer's outputs (L, B, T, H) of a stack, by the plain version."""
+    layer = {"lstm": ops.lstm_scan_ref, "gru": ops.gru_scan_ref}[cell]
+    outs, buf = [], xp0
+    for l in range(w_hh.shape[0]):
+        outs.append(layer(buf, w_hh[l], b_hh[l]))
+        if l < w_hh.shape[0] - 1:
+            buf = outs[-1] @ w_ih[l] + b_ih[l]
+    return torch.stack(outs)
+
+
+@pytest.mark.parametrize("dims", [(2, 9, 7, 3), (3, 5, 5, 2)], ids=["oddH_L3", "oddH_L2"])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_stack_backward_plumbing_matches_vct(monkeypatch, cell, dims):
+    """What the CUDA backward runs around its kernel, on the CPU: the
+    batched recurrent and input products, a launch a layer (here
+    ``layer_bwd_ref``, the kernel's contract in plain PyTorch), dy between
+    layers, the batched weight products and the bias sums, against jax.vjp
+    of vct's fused-stack op (interpret mode, custom_vjp); atol = rtol =
+    1e-5. The launch count it returns is the number of launches made."""
+    calls = []
+
+    def layer_bwd(*a):
+        calls.append(a[5].shape)
+        ops.layer_bwd_ref(*a)
+
+    monkeypatch.setattr(ops, "_layer_bwd", layer_bwd)
+    args = _stack_args(cell, *dims)
+    gy = np.random.RandomState(7).randn(*dims[:3]).astype(np.float32)
+    kernel = {"lstm": vct_lstm.lstm_stack_pallas, "gru": vct_lstm.gru_stack_pallas}[cell]
+    _, vjp = jax.vjp(kernel, *map(jnp.asarray, args))
+    want = vjp(jnp.asarray(gy))
+    targs = list(map(torch.from_numpy, args))
+    outs = _layer_outputs(cell, *targs)
+    *got, launches = ops._stack_backward(GATES[cell], *targs, outs, torch.from_numpy(gy))
+    assert launches == len(calls) == dims[3]
+    for name, g, w in zip(("xp0", "w_hh", "b_hh", "w_ih", "b_ih"), got, want):
+        assert tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **OPS_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("dims", [(2, 9, 7), (3, 1, 5)], ids=["oddH", "T1"])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_layer_backward_plumbing_matches_vct(monkeypatch, cell, dims):
+    """K5's CUDA backward path, the one-layer stack, on the CPU with
+    ``layer_bwd_ref`` for the launch, against jax.vjp of vct's single-layer
+    op (interpret mode); atol = rtol = 1e-5; one launch."""
+    calls = []
+
+    def layer_bwd(*a):
+        calls.append(a[5].shape)
+        ops.layer_bwd_ref(*a)
+
+    monkeypatch.setattr(ops, "_layer_bwd", layer_bwd)
+    args = _layer_args(cell, *dims)
+    gy = np.random.RandomState(8).randn(*dims).astype(np.float32)
+    kernel = {"lstm": vct_lstm.lstm_scan_pallas, "gru": vct_lstm.gru_scan_pallas}[cell]
+    _, vjp = jax.vjp(kernel, *map(jnp.asarray, args))
+    want = vjp(jnp.asarray(gy))
+    xp, w_hh, b_hh = map(torch.from_numpy, args)
+    y = {"lstm": ops.lstm_scan_ref, "gru": ops.gru_scan_ref}[cell](xp, w_hh, b_hh)
+    *got, launches = ops._layer_backward(GATES[cell], xp, w_hh, b_hh, y, torch.from_numpy(gy))
+    assert launches == len(calls) == 1
+    for name, g, w in zip(("xp", "w_hh", "b_hh"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **OPS_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_layer_bwd_ref_writes_the_kernel_layout(cell):
+    """One launch's contract in plain PyTorch against autograd through the
+    plain layer: dx the gradient of the input parts, dR the gradient of the
+    recurrent products h_t @ W_hh (so 0 at the last step), db the sums over
+    time of the recurrent parts' gradients (step 0's included) and of dx."""
+    B, T, H = 2, 6, 5
+    G = GATES[cell]
+    xp, w_hh, b_hh = map(torch.from_numpy, _layer_args(cell, B, T, H, seed=3))
+    bx = torch.from_numpy(np.random.RandomState(4).randn(G * H).astype(np.float32) * 0.1)
+    gy = torch.from_numpy(np.random.RandomState(5).randn(B, T, H).astype(np.float32))
+    # The layer with R_t = h_t @ W_hh + e_t: the gradient of the zero leaf e
+    # is the gradient of R.
+    leaves = [t.clone().requires_grad_(True) for t in (xp, torch.zeros_like(xp), b_hh)]
+    x_, e_, bh_ = leaves
+    h, c, ys = xp.new_zeros(B, H), xp.new_zeros(B, H), []
+    for t in range(T):
+        rec = ((h @ w_hh + e_[:, t - 1]) if t else 0.0) + bh_
+        if G == 4:
+            i, f, g, o = (x_[:, t] + bx + rec).chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+        else:
+            xr, xz, xn = (x_[:, t] + bx).chunk(3, dim=-1)
+            hr, hz, hn = rec.chunk(3, dim=-1)
+            rg, z = torch.sigmoid(xr + hr), torch.sigmoid(xz + hz)
+            h = (1 - z) * torch.tanh(xn + rg * hn) + z * h
+        ys.append(h)
+    y = torch.stack(ys, 1)
+    want_dx, want_dr, want_db = torch.autograd.grad(y, leaves, gy)
+    y, r = y.detach(), y.detach() @ w_hh
+    dx, dr, db = torch.empty_like(xp), torch.empty_like(xp), xp.new_empty(2, B, G * H)
+    ops.layer_bwd_ref(G, xp, r, bx, b_hh, y, w_hh, gy, dx, dr, db)
+    torch.testing.assert_close(dx, want_dx, **OPS_TOL)
+    torch.testing.assert_close(dr, want_dr, **OPS_TOL)
+    assert torch.equal(dr[:, -1], torch.zeros_like(dr[:, -1]))
+    torch.testing.assert_close(db[0].sum(0), want_db, **OPS_TOL)
+    torch.testing.assert_close(db[1], dx.sum(1), **OPS_TOL)
+
+
 @pytest.mark.parametrize("bidirectional", [False, True], ids=["uni", "bidir"])
 @pytest.mark.parametrize("cls_name", ["LSTM", "GRU"])
 def test_rnn_module_gradients_match_vct(cls_name, bidirectional):

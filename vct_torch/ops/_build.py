@@ -111,10 +111,10 @@ def _declare(lib) -> None:
     lib.vct_selective_scan_bwd_scratch.restype = ll
     lib.vct_rnn_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.vct_rnn_fwd.restype = i
-    lib.vct_rnn_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.vct_rnn_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.vct_rnn_bwd.restype = i
-    lib.vct_rnn_bwd_scratch.argtypes = [i, i, i, i]
-    lib.vct_rnn_bwd_scratch.restype = ll
+    lib.vct_rnn_bwd_plan.argtypes = [i, i, i]
+    lib.vct_rnn_bwd_plan.restype = i
     lib.vct_rnn_plan.argtypes = [i, i, i, i]
     lib.vct_rnn_plan.restype = i
     lib.vct_error_string.argtypes = [i]

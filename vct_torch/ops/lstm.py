@@ -19,11 +19,15 @@ steps) and how its two designs meet that: "registers" for ``H <= 64``,
 
 The backward (``lstm_scan_bwd``, ``gru_scan_bwd``, ``lstm_stack_bwd``,
 ``gru_stack_bwd``) launches ``vct_torch/csrc/lstm_bwd.cu`` once per layer,
-the stack's layers in reverse: the kernel gives the gate gradients of a
-layer in reverse time from its saved outputs; the weight gradients and the
-stack's inter-layer gradients are matrix products over saved tensors
-(``torch.matmul``), as ``vct`` leaves them to XLA. ``vct`` has no Pallas
-kernel there (its custom_vjps differentiate the ``lax.scan`` references).
+the stack's layers in reverse: the kernel walks a layer's chain of steps in
+reverse time (``layer_bwd_ref`` is its plain version; two designs,
+"registers" for ``H <= 64`` and "columns" above, ``bwd_design``). What is
+not on that chain is a batched matrix product or sum over the saved outputs
+(``torch.bmm``, ``torch.mm``), as ``vct`` leaves it to XLA: every
+layer's recurrent and input parts before the layers, the weight gradients
+after them, and between two layers only ``dy = dx @ W_ih^T``. ``vct`` has
+no Pallas kernel there (its custom_vjps differentiate the ``lax.scan``
+references).
 On CUDA each forward wrapper records an autograd node whose backward is
 that kernel when an input requires a gradient; the stack's forward then
 also saves every layer's outputs.
@@ -44,7 +48,7 @@ __all__ = [
     "lstm_scan", "gru_scan", "lstm_stack", "gru_stack",
     "lstm_scan_ref", "gru_scan_ref", "stack_ref", "design",
     "lstm_scan_bwd", "gru_scan_bwd", "lstm_stack_bwd", "gru_stack_bwd",
-    "scan_bwd_ref", "stack_bwd_ref",
+    "scan_bwd_ref", "stack_bwd_ref", "layer_bwd_ref", "bwd_design",
 ]
 
 DESIGNS = ("columns", "registers")
@@ -181,58 +185,141 @@ def _launch(name, n_gates, xp, w_hh, b_hh, w_ih=None, b_ih=None, save=False):
     return y, hs, 1
 
 
-def _layer_bwd(n_gates, x, h, w_hh, b_hh, dy):
-    """One layer's backward kernel: (dx, dr), the gradients of the gate
-    input parts x and of the recurrent parts h_{t-1} @ W_hh + b_hh (the same
-    tensor for the LSTM)."""
+def bwd_design(T: int, H: int, n_gates: int) -> str:
+    """The backward kernel design a CUDA launch takes for these shapes, as
+    the kernel library decides it (``vct_rnn_bwd_plan``); needs the built
+    library."""
+    return DESIGNS[_build.load_kernels().vct_rnn_bwd_plan(T, H, n_gates)]
+
+
+def layer_bwd_ref(n_gates, x, r, bx, b_hh, h, w_hh, dy, dx, dr, db) -> None:
+    """Plain version of one backward kernel launch (``vct_rnn_bwd``), the
+    same inputs and outputs. x (B, T, G*H) and bx (G*H,) or None: the gate
+    input parts are x + bx; r (B, T, G*H): r[:, t] = h_t @ W_hh, so that
+    step t+1's recurrent part is r[:, t] + b_hh (step 0's is b_hh); h (B, T,
+    H): the layer's outputs; w_hh (H, G*H); dy (B, T, H).
+    Writes dx (B, T, G*H), the gradient of x; dr (B, T, G*H), the gradient
+    of r (of step t+1's recurrent part at t, 0 at t = T-1); db (2, B, G*H),
+    each row's sums over time of the recurrent parts' gradients (step 0's
+    included) and of dx."""
     B, T, GH = x.shape
     H = GH // n_gates
-    dx = torch.empty_like(x)
-    dr = torch.empty_like(x) if n_gates == 3 else None
+    rec = torch.cat([r.new_zeros(B, 1, GH), r[:, :-1]], dim=1) + b_hh
+    if bx is not None:
+        x = x + bx
+    if n_gates == 4:
+        pi, pf, pg, po = (x + rec).chunk(4, dim=-1)
+        i, f, g, o = torch.sigmoid(pi), torch.sigmoid(pf), torch.tanh(pg), torch.sigmoid(po)
+        cs, c = [], x.new_zeros(B, H)
+        for t in range(T):
+            c = f[:, t] * c + i[:, t] * g[:, t]
+            cs.append(c)
+        c = torch.stack(cs, dim=1)
+        c_prev = torch.cat([c.new_zeros(B, 1, H), c[:, :-1]], dim=1)
+        tc = torch.tanh(c)
+    else:
+        xr, xz, xn = x.chunk(3, dim=-1)
+        hr, hz, hn = rec.chunk(3, dim=-1)
+        rg, z = torch.sigmoid(xr + hr), torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + rg * hn)
+        h_prev = torch.cat([h.new_zeros(B, 1, H), h[:, :-1]], dim=1)
+    dxs, drs = [None] * T, [None] * T
+    dh_rec, dc = x.new_zeros(B, H), x.new_zeros(B, H)
+    for t in reversed(range(T)):
+        dh = dy[:, t] + dh_rec
+        if n_gates == 4:
+            it, ft, gt, ot, tct = i[:, t], f[:, t], g[:, t], o[:, t], tc[:, t]
+            dct = dc + dh * ot * (1 - tct * tct)
+            dxs[t] = drs[t] = torch.cat([dct * gt * it * (1 - it),
+                                         dct * c_prev[:, t] * ft * (1 - ft),
+                                         dct * it * (1 - gt * gt), dh * tct * ot * (1 - ot)], -1)
+            dc = dct * ft
+            dh_rec = drs[t] @ w_hh.t()
+        else:
+            rt, zt, nt = rg[:, t], z[:, t], n[:, t]
+            dpn = dh * (1 - zt) * (1 - nt * nt)
+            dpz = dh * (h_prev[:, t] - nt) * zt * (1 - zt)
+            dpr = dpn * hn[:, t] * rt * (1 - rt)
+            dxs[t] = torch.cat([dpr, dpz, dpn], -1)
+            drs[t] = torch.cat([dpr, dpz, dpn * rt], -1)
+            dh_rec = drs[t] @ w_hh.t() + dh * zt
+    dx.copy_(torch.stack(dxs, dim=1))
+    drt = torch.stack(drs, dim=1)
+    dr[:, :-1] = drt[:, 1:]
+    dr[:, -1] = 0
+    db[0] = drt.sum(dim=1)
+    db[1] = dx.sum(dim=1)
+
+
+def _layer_bwd(n_gates, x, r, bx, b_hh, h, w_hh, dy, dx, dr, db) -> None:
+    """One layer's backward kernel, ``layer_bwd_ref``'s contract on CUDA
+    tensors."""
+    B, T, GH = x.shape
     lib = _build.load_kernels()
-    act = torch.empty(lib.vct_rnn_bwd_scratch(B, T, H, n_gates), dtype=torch.float32,
-                      device=x.device)
     with torch.cuda.device(x.device):
         err = lib.vct_rnn_bwd(
-            x.data_ptr(), h.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), dy.data_ptr(),
-            dx.data_ptr(), None if dr is None else dr.data_ptr(), act.data_ptr(),
-            B, T, H, n_gates, torch.cuda.current_stream().cuda_stream,
+            x.data_ptr(), r.data_ptr(), None if bx is None else bx.data_ptr(), b_hh.data_ptr(),
+            h.data_ptr(), w_hh.data_ptr(), dy.data_ptr(), dx.data_ptr(), dr.data_ptr(),
+            db.data_ptr(), B, T, GH // n_gates, n_gates,
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "rnn backward kernel launch")
-    return dx, (dx if dr is None else dr)
 
 
-def _weight_grads(h, dr):
-    """dW_hh = sum_t h_{t-1}^T dr_t (h_{-1} = 0) and db_hh = sum_t dr_t."""
-    H, GH = h.shape[2], dr.shape[2]
-    h_prev = torch.nn.functional.pad(h[:, :-1], (0, 0, 1, 0))
-    return h_prev.reshape(-1, H).t() @ dr.reshape(-1, GH), dr.sum(dim=(0, 1))
+def _split_rows(t, ns):
+    """(L, N, C) -> (L*ns, N/ns, C): each layer's rows in ns chunks (a view)."""
+    return t.reshape(t.shape[0] * ns, t.shape[1] // ns, t.shape[2])
 
 
-def _stack_backward(n_gates, xp0, w_hh, b_hh, w_ih, b_ih, hs, y, gy):
-    """The stack's gradients, its layers in reverse: (dxp0, dw_hh, db_hh,
-    dw_ih, db_ih, kernel launches)."""
+def _stack_backward(n_gates, xp0, w_hh, b_hh, w_ih, b_ih, outs, gy):
+    """The gradients of a stack of L >= 1 layers from every layer's outputs
+    ``outs`` (L, B, T, H), its layers in reverse: (dxp0, dw_hh, db_hh,
+    dw_ih, db_ih, kernel launches). Only a launch a layer and dy's product
+    lie on the layers' chain; the recurrent and input parts before it and
+    the weight gradients after it are batched products and sums."""
     L, H, GH = w_hh.shape
     B, T = xp0.shape[:2]
-    outs = [hs[l] for l in range(L - 1)] + [y]
-    grads = [torch.empty_like(t) for t in (w_hh, b_hh, w_ih, b_ih)]
-    dw_hh, db_hh, dw_ih, db_ih = grads
-    dy, dxp0, launches = gy, None, 0
+    BT = B * T
+    flat = outs.reshape(L, BT, H)
+    rec = torch.bmm(flat, w_hh)  # h_t @ W_hh; the kernel adds the biases
+    xs = torch.bmm(flat[:-1], w_ih) if L > 1 else None
+    dx = xp0.new_empty(L, B, T, GH)
+    dr = xp0.new_empty(L, B, T, GH)
+    db = xp0.new_empty(L, 2, B, GH)
+    dy, launches = gy, 0
     for l in reversed(range(L)):
-        if l == 0:
-            x = xp0
-        else:
-            x = torch.addmm(b_ih[l - 1], outs[l - 1].reshape(-1, H), w_ih[l - 1]).view(B, T, GH)
-        dx, dr = _layer_bwd(n_gates, x, outs[l], w_hh[l], b_hh[l], dy.contiguous())
+        x, bx = (xp0, None) if l == 0 else (xs[l - 1].view(B, T, GH), b_ih[l - 1])
+        _layer_bwd(n_gates, x, rec[l].view(B, T, GH), bx, b_hh[l], outs[l], w_hh[l], dy, dx[l],
+                   dr[l], db[l])
         launches += 1
-        dw_hh[l], db_hh[l] = _weight_grads(outs[l], dr)
-        if l == 0:
-            dxp0 = dx
-        else:
-            dw_ih[l - 1] = outs[l - 1].reshape(-1, H).t() @ dx.reshape(-1, GH)
-            db_ih[l - 1] = dx.sum(dim=(0, 1))
-            dy = (dx.reshape(-1, GH) @ w_ih[l - 1].t()).view(B, T, H)
-    return dxp0, dw_hh, db_hh, dw_ih, db_ih, launches
+        if l:
+            dy = torch.mm(dx[l].view(BT, GH), w_ih[l - 1].t()).view(B, T, H)
+    # dW_hh[l] = sum_t h_t^T dr[l, t] and dW_ih[l-1] = sum_t y_{l-1, t}^T dx_l,
+    # over B*T rows cut into ns chunks: cuBLAS gives a product of so few
+    # output tiles one block a tile, each walking all B*T rows.
+    ns = 1
+    while ns < 16 and BT % (2 * ns) == 0 and BT // (2 * ns) >= 64:
+        ns *= 2
+    part = xp0.new_empty(2 * L - 1, ns, H, GH)
+    torch.bmm(_split_rows(flat, ns).transpose(1, 2), _split_rows(dr.view(L, BT, GH), ns),
+              out=part[:L].view(L * ns, H, GH))
+    if L > 1:
+        torch.bmm(_split_rows(flat[:-1], ns).transpose(1, 2),
+                  _split_rows(dx[1:].view(L - 1, BT, GH), ns),
+                  out=part[L:].view((L - 1) * ns, H, GH))
+    dw = part.sum(dim=1)
+    dbs = db.sum(dim=2)  # (L, 2, G*H)
+    return dx[0], dw[:L], dbs[:, 0], dw[L:], dbs[1:, 1], launches
+
+
+def _layer_backward(n_gates, xp, w_hh, b_hh, y, gy):
+    """K5's backward, the one-layer stack: (dxp, dw_hh, db_hh, kernel
+    launches)."""
+    H, GH = w_hh.shape
+    none_w, none_b = w_hh.new_empty(0, H, GH), b_hh.new_empty(0, GH)
+    dx, dw_hh, db_hh, _, _, launches = _stack_backward(n_gates, xp, w_hh[None], b_hh[None],
+                                                       none_w, none_b, y[None], gy)
+    return dx, dw_hh[0], db_hh[0], launches
 
 
 def scan_bwd_ref(xp, w_hh, b_hh, gy):
@@ -252,33 +339,28 @@ def stack_bwd_ref(xp0, w_hh, b_hh, w_ih, b_ih, gy):
         return torch.autograd.grad(stack_ref(*leaves), leaves, gy)
 
 
-def _scan_bwd(name, n_gates, xp, w_hh, b_hh, y, gy):
+def _scan_bwd(name, n_gates, xp, w_hh, b_hh, y, gy, counter):
     _check_layer(name, n_gates, xp, w_hh, b_hh)
     if xp.device.type == "cpu":
         return scan_bwd_ref(xp, w_hh, b_hh, gy)
     _check_cuda(name, {"xp": xp, "w_hh": w_hh, "b_hh": b_hh, "y": y, "gy": gy})
     if xp.numel() == 0 or w_hh.shape[0] == 0:
         return torch.zeros_like(xp), torch.zeros_like(w_hh), torch.zeros_like(b_hh)
-    dx, dr = _layer_bwd(n_gates, xp, y, w_hh, b_hh, gy)
-    return (dx, *_weight_grads(y, dr))
+    *grads, launches = _layer_backward(n_gates, xp, w_hh, b_hh, y, gy)
+    counter.launches += launches
+    return tuple(grads)
 
 
 def lstm_scan_bwd(xp, w_hh, b_hh, y, gy):
     """K5 backward, LSTM: (dxp, dw_hh, db_hh) of ``y = lstm_scan(xp, w_hh,
     b_hh)`` against gy; one kernel launch on CUDA."""
-    grads = _scan_bwd("lstm_scan_bwd", 4, xp, w_hh, b_hh, y, gy)
-    if xp.device.type == "cuda" and xp.numel():
-        lstm_scan_bwd.launches += 1
-    return grads
+    return _scan_bwd("lstm_scan_bwd", 4, xp, w_hh, b_hh, y, gy, lstm_scan_bwd)
 
 
 def gru_scan_bwd(xp, w_hh, b_hh, y, gy):
     """K5 backward, GRU: (dxp, dw_hh, db_hh) of ``y = gru_scan(xp, w_hh,
     b_hh)`` against gy; one kernel launch on CUDA."""
-    grads = _scan_bwd("gru_scan_bwd", 3, xp, w_hh, b_hh, y, gy)
-    if xp.device.type == "cuda" and xp.numel():
-        gru_scan_bwd.launches += 1
-    return grads
+    return _scan_bwd("gru_scan_bwd", 3, xp, w_hh, b_hh, y, gy, gru_scan_bwd)
 
 
 def _stack_bwd(name, n_gates, xp0, w_hh, b_hh, w_ih, b_ih, hs, y, gy, counter):
@@ -290,7 +372,8 @@ def _stack_bwd(name, n_gates, xp0, w_hh, b_hh, w_ih, b_ih, hs, y, gy, counter):
                        "hs": hs, "y": y, "gy": gy})
     if xp0.numel() == 0:
         return tuple(torch.zeros_like(t) for t in (xp0, w_hh, b_hh, w_ih, b_ih))
-    *grads, launches = _stack_backward(n_gates, xp0, w_hh, b_hh, w_ih, b_ih, hs, y, gy)
+    outs = torch.cat([hs, y.unsqueeze(0)])
+    *grads, launches = _stack_backward(n_gates, xp0, w_hh, b_hh, w_ih, b_ih, outs, gy)
     counter.launches += launches
     return tuple(grads)
 
