@@ -63,8 +63,10 @@ line):
    forward and through the time flip; then the backward kernels (K3's
    ``selective_scan_bwd.cu``, K2/K5's ``lstm_bwd.cu``) against autograd
    through the plain versions, each gradient within 1e-5 of its largest
-   magnitude, each launch after the NaN fill: K3 at the deployed step both
-   directions, VideoMamba's width and N = 1, 24, 64, 100; the LSTM and GRU
+   magnitude, each launch after the NaN fill: K3 at the deployed step and
+   L = 130 (three chunks) both directions, VideoMamba's width and N = 1, 24,
+   64, 100, 300 (two state tiles), each shape printed with its plan
+   (``bwd_plan``); the LSTM and GRU
    stacks, each shape printed with its backward design (checked:
    "registers" for H <= 64, "columns" above), at the bench stack, a
    request, the default width, H = 1, 5, 17, 64 (the register design's
@@ -122,7 +124,8 @@ line):
     at the SFUs' rate) and ``launch_ms`` (the launch without the wrapper's
     checks, by events), and a line of extra timings at the other shapes,
     with the LSTM stack's backward at T = 130 beside cuDNN's
-    (``lstm_stack_bwd_T130``), K3's device time under S = 1 and 2, each
+    (``lstm_stack_bwd_T130``), K3's backward at VideoMamba's shape
+    (``selective_scan_bwd_videomamba``), K3's device time under S = 1 and 2, each
     with the plan's 128-thread blocks and 64-step chunks, 64- or 256-thread
     blocks, or 32-step chunks, at five shapes (``selective_scan_plans``), and K4's device time under
     its plan and, for each K, the two band heights whose block counts lie
@@ -144,9 +147,12 @@ line):
     autograd through the plain version as ``plain_ms``, and for LSTM/GRU
     cuDNN's backward alone as ``library_ms``, and both timed by the same
     profiler union as ``device_busy_ms`` and ``library_busy_ms`` (one method
-    for both where cuDNN's capture fails); ``python3 chip_smoke.py
-    --bwd-timing ROOT`` prints only the K2/K5 backward entry points' times
-    (``bwd_timings``) for the package at ROOT, an older checkout's too.
+    for both where cuDNN's capture fails); K3's its plan, ``us_per_step``
+    and ``kernel_launches`` (device launches a call, ``torch.profiler``);
+    ``python3 chip_smoke.py --bwd-timing ROOT`` prints only the backward
+    entry points' times (``bwd_timings``: K3's at the deployed step and
+    VideoMamba's shape with its launches a call, K2/K5's) for the package at
+    ROOT, an older checkout's too.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -694,14 +700,21 @@ def _check_rnn(torch, gen):
 # Backward checks: each gradient within BWD_RTOL of its largest magnitude of
 # autograd through the plain version (f32, other summation orders).
 BWD_RTOL = 1e-5
-# K3 backward shapes (B, L, D, N): the deployed step, VideoMamba's width,
-# and N = 1, 24, 64, 100 at the deployed widths of a request.
-BWD_SCAN_SHAPES = [(32, T, 16, 32), (2, 256, 2048, 16)] + [(4, T, 16, n) for n in (1, 24, 64, 100)]
 # K2 backward shapes (B, T, H, L): the bench stack, a request, the default
 # width; the register design's edges H = 1, 5, 17 (odd), 64 (its widest
 # plan) and T = 130 (three chunks); H = 65 and 256 ("columns", W_hh read
 # through L2 at 256).
 BWD_LONG_T = 130
+# K3 backward shapes (B, L, D, N): the deployed step, VideoMamba's width,
+# N = 1, 24, 64, 100 at the deployed widths of a request, L = 130 (three
+# chunks: a first pass keeps h at the later chunks' starts) and N = 300 (two
+# state tiles). The deployed step and L = 130 run in both directions.
+BWD_SCAN_SHAPES = ([(32, T, 16, 32), (2, 256, 2048, 16)] + [(4, T, 16, n) for n in (1, 24, 64, 100)]
+                   + [(4, BWD_LONG_T, 16, 32), (4, T, 16, 300)])
+BWD_SCAN_BOTH_WAYS = (BWD_SCAN_SHAPES[0], (4, BWD_LONG_T, 16, 32))
+# VideoMamba's shape (n_state 16, d_inner 2048 at L = 256), timed beside the
+# deployed step.
+VIDEOMAMBA_SCAN = (2, 256, 2048, 16)
 BWD_RNN_SHAPES = [(32, 40, 56, 4), (4, 40, 56, 4), (32, 60, 32, 3), (3, 7, 5, 3), (2, 20, 17, 3),
                   (2, 16, 1, 2), (2, 16, 64, 4), (2, BWD_LONG_T, 17, 3), (2, 16, 65, 2),
                   (2, 16, 256, 2)]
@@ -789,7 +802,8 @@ def _check_backward(torch, gen) -> dict:
     for dims in BWD_SCAN_SHAPES:
         args = _scan_inputs(torch, gen, *dims)
         gy = torch.randn(dims[:3], generator=gen).cuda()
-        for reverse in ((False, True) if dims == BWD_SCAN_SHAPES[0] else (False,)):
+        print(f"  selective_scan_bwd B,L,D,N={dims}: plan {k3.bwd_plan(*dims)}")
+        for reverse in ((False, True) if dims in BWD_SCAN_BOTH_WAYS else (False,)):
             leaves = [a.clone().requires_grad_(True) for a in args]
             y = k3.selective_scan(*leaves, reverse=reverse)
             fill_shared_memory(float("nan"))
@@ -1362,8 +1376,11 @@ def _bwd_timing(torch, gen, name, dims) -> dict:
         plain = lambda: k3.selective_scan_bwd_ref(*args, gy)  # noqa: E731
         bound, by = _bound_ms(4 * (5 * B * L * D + 4 * B * L * N + 2 * D * N),
                               SCAN_BWD_FLOPS * B * L * D * N)
-        return {"shape": list(dims), "ms": _events_ms(torch, fn, 20),
-                "device_ms": _graph_ms(torch, fn, 20), "plain_ms": _events_ms(torch, plain, 3),
+        device_ms = _graph_ms(torch, fn, 20)
+        return {"shape": list(dims), "plan": k3.bwd_plan(B, L, D, N),
+                "ms": _events_ms(torch, fn, 20), "device_ms": device_ms,
+                "us_per_step": device_ms / L * 1e3, "kernel_launches": _kernels_a_call(torch, fn),
+                "plain_ms": _events_ms(torch, plain, 3),
                 "bound_ms": bound, "bound_by": by, "library_ms": None,
                 "expf_bound_ms": B * L * D * N / SFU_EXP_PER_S * 1e3}
     cell, kind, _ = name.split("_")
@@ -1442,6 +1459,29 @@ def _library_device_ms(torch, fn):
     except RuntimeError:
         torch.cuda.synchronize()
         return _busy_ms(torch, fn, 20), "profiler_kernel_union"
+
+
+def _kernels_a_call(torch, fn, calls: int = 20) -> float:
+    """Device launches (kernels, copies, sets) ``torch.profiler`` records a
+    call of ``fn``: ``calls`` calls in its active window, after a warm-up
+    window of as many (a window without one missed the first launches).
+    Raises if it records none."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    counts = []
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: counts.append(
+                     sum(e.device_type == cuda for e in p.events()))) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    if not counts or not counts[0]:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    return counts[0] / calls
 
 
 def _busy_ms(torch, fn, calls: int) -> float:
@@ -1640,6 +1680,8 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
                                           in_size=256),
         "lstm_stack_bwd_T130": _bwd_timing(torch, gen, "lstm_stack_bwd",
                                            (TRAIN_BATCH, BWD_LONG_T, 56, 4)),
+        "selective_scan_bwd_videomamba": _bwd_timing(torch, gen, "selective_scan_bwd",
+                                                     VIDEOMAMBA_SCAN),
     }, "gpu": gpu}
     print(json.dumps(extra))
     return kernels
@@ -1657,17 +1699,28 @@ def k1_timings(torch, root: Path) -> dict:
 
 
 def bwd_timings(torch, root: Path) -> dict:
-    """The K2/K5 backward entry points at the training path's shape (the
-    bench stack; K5 its first layer), and the LSTM stack's at T =
-    BWD_LONG_T (three staged chunks), by events and from a CUDA graph, for
-    the ``vct_torch`` package at ``root``: this checkout's or an older
-    one's. Uses only the entry points and the forward's ``_launch``."""
+    """The backward entry points at the training path's shapes, by events
+    and from a CUDA graph, for the ``vct_torch`` package at ``root``: this
+    checkout's or an older one's. K3's at the deployed step and at
+    VideoMamba's shape, with the device launches a call (``torch.profiler``);
+    K2/K5's at the bench stack (K5 its first layer), and the LSTM stack's at
+    T = BWD_LONG_T (three staged chunks). Uses only the entry points and
+    K2's forward ``_launch``."""
     sys.path.insert(0, str(root))
     from vct_torch.ops import lstm as ops
+    from vct_torch.ops import selective_scan as k3
 
     gen = torch.Generator().manual_seed(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = {}
+    for label, dims in (("selective_scan_bwd", (TRAIN_BATCH, T, 16, 32)),
+                        ("selective_scan_bwd_videomamba", VIDEOMAMBA_SCAN)):
+        args = _scan_inputs(torch, gen, *dims)
+        gy = torch.randn(dims[:3], generator=gen).cuda()
+        fn = lambda: k3.selective_scan_bwd(*args, gy)  # noqa: E731
+        rows[label] = {"shape": list(dims), "ms": _events_ms(torch, fn, 20),
+                       "device_ms": _graph_ms(torch, fn, 20),
+                       "kernel_launches": _kernels_a_call(torch, fn)}
     cases = [(n, T_UCF50) for n in BWD_KERNELS if n != "selective_scan_bwd"]
     for name, T_ in cases + [("lstm_stack_bwd", BWD_LONG_T)]:
         cell, kind, _ = name.split("_")

@@ -672,7 +672,10 @@ def _stale(fn):
 
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("dims", [(4, 60, 16, 32), (3, 70, 20, 1), (2, 33, 5, 24), (2, 40, 16, 33),
-                                  (2, 20, 6, 100)], ids=["deployed", "N1", "N24", "N33", "N100"])
+                                  (2, 20, 6, 100), (2, 130, 16, 32), (2, 256, 64, 16),
+                                  (2, 40, 6, 300), (1, 60, 16, 32), (3, 60, 20, 32)],
+                         ids=["deployed", "N1", "N24", "N33", "N100", "L130", "videomamba_L_N",
+                              "N300", "B1", "D20"])
 def test_selective_scan_backward_kernel_matches_plain(cuda_device, dims, reverse):
     args = _scan_args(*dims, cuda_device)
     gy = torch.randn(dims[:3], device=cuda_device)
@@ -687,6 +690,56 @@ def test_selective_scan_backward_kernel_matches_plain(cuda_device, dims, reverse
                         "u delta A B C".split())
     again = scan_ops.selective_scan_bwd(*args, gy, reverse=reverse)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # two runs bit-equal
+
+
+def test_selective_scan_backward_counters_reset_across_shapes_and_graph_replays(cuda_device):
+    """Two shapes, each with its own tree of channel-group partials and
+    counters, alternate on one stream; then both are captured in one CUDA
+    graph and replayed twice. Every result is bit-equal to the first run of
+    its shape: each launch leaves its counters at zero for the next."""
+    shapes = [(32, 60, 16, 32), (3, 130, 40, 24)]
+    cases = []
+    for i, dims in enumerate(shapes):
+        args = _scan_args(*dims, cuda_device, seed=i)
+        cases.append((args, torch.randn(dims[:3], device=cuda_device)))
+    first = [[t.clone() for t in scan_ops.selective_scan_bwd(*a, gy)] for a, gy in cases]
+    for _ in range(2):
+        for (a, gy), want in zip(cases, first):
+            _build.fill_shared_memory(float("nan"))
+            got = scan_ops.selective_scan_bwd(*a, gy)
+            assert all(torch.equal(x, y) for x, y in zip(got, want))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for a, gy in cases:
+            scan_ops.selective_scan_bwd(*a, gy)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [scan_ops.selective_scan_bwd(*a, gy) for a, gy in cases]
+    for _ in range(2):
+        for out in outs:
+            for t in out:
+                t.fill_(float("nan"))
+        _build.fill_shared_memory(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, want in zip(outs, first):
+            assert all(torch.equal(x, y) for x, y in zip(out, want))
+
+
+def test_selective_scan_backward_plan_is_pinned(cuda_device):
+    """The backward's plan at the deployed step (one state a lane, a warp a
+    channel, one 64-step chunk) and at VideoMamba's shape (two states a
+    lane, eight lanes a channel, 64-step chunks), 128-thread blocks."""
+    deployed = scan_ops.bwd_plan(32, 60, 16, 32)
+    assert (deployed["states_per_lane"], deployed["lanes_per_channel"], deployed["block_threads"],
+            deployed["chunk_steps"], deployed["state_tiles"]) == (1, 32, 128, 64, 1)
+    videomamba = scan_ops.bwd_plan(2, 256, 2048, 16)
+    assert (videomamba["states_per_lane"], videomamba["lanes_per_channel"],
+            videomamba["block_threads"], videomamba["chunk_steps"],
+            videomamba["state_tiles"]) == (2, 8, 128, 64, 1)
+    assert scan_ops.bwd_plan(4, 60, 16, 300)["state_tiles"] == 2
 
 
 @pytest.mark.parametrize("dims", [(4, 40, 56, 4), (3, 7, 5, 3), (2, 20, 17, 3), (2, 16, 65, 2),

@@ -131,9 +131,24 @@ def test_decode_plan_reads_the_packed_plan(code, N, want):
             p["state_tiles"], p["block_threads"], p["chunk_steps"]) == want
 
 
+@pytest.mark.parametrize("code,N,want", [
+    (1 | 32 << 4 | 2 << 16 | 8 << 20, 32, (1, 32, 1, 1, 128, 64)),
+    (2 | 8 << 4 | 2 << 16 | 7 << 20, 16, (2, 8, 1, 1, 128, 56)),
+    (1 | 256 << 4 | 4 << 16 | 4 << 20, 300, (1, 256, 8, 2, 256, 32)),
+    (1 | 1 << 4 | 2 << 16 | 1 << 20, 1, (1, 1, 1, 1, 128, 8)),
+])
+def test_decode_plan_reads_the_packed_backward_plan(code, N, want):
+    """The backward's plan (``vct_scan_bwd_plan``) is packed as the
+    forward's, with its chunk in steps of 8: chunk / 8 << 20."""
+    p = decode_plan(code, N, chunk_unit=8)
+    assert (p["states_per_lane"], p["lanes_per_channel"], p["warps_per_channel"],
+            p["state_tiles"], p["block_threads"], p["chunk_steps"]) == want
+
+
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("dims", [(2, 9, 16, 1), (2, 9, 16, 24), (2, 12, 8, 4)],
-                         ids=["N1", "N24", "small"])
+@pytest.mark.parametrize("dims", [(2, 9, 16, 1), (2, 9, 16, 24), (2, 12, 8, 4), (2, 70, 8, 4),
+                                  (2, 130, 8, 4)],
+                         ids=["N1", "N24", "small", "L70", "L130"])
 def test_selective_scan_gradients_match_vct(dims, reverse):
     """Autograd through the port's K3 op (its plain version on the CPU)
     against jax.vjp of vct's (the Pallas kernel in interpret mode under its

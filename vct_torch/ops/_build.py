@@ -20,7 +20,7 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_dir", "check", "fill_shared_memory", "load_kernels"]
+__all__ = ["SOURCES", "build_dir", "check", "counters", "fill_shared_memory", "load_kernels"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -35,6 +35,14 @@ _LIB_NAME = "libvct_torch_kernels.so"
 
 _lock = threading.Lock()
 _lib = None
+# The kernels' int32 counters, one tensor per (device, stream): zero before
+# a launch and set back to zero by the launch's blocks that use them, so
+# they are allocated once and never cleared by the host, kernels on one
+# stream (which never overlap) share them, and launches on two streams
+# never do. A tensor outgrown is kept, not freed: a CUDA graph captured
+# with it still writes there.
+_counters: dict = {}
+_outgrown: list = []
 
 
 def _nvcc() -> str:
@@ -105,10 +113,13 @@ def _declare(lib) -> None:
     lib.vct_selective_scan_fwd.restype = i
     lib.vct_scan_plan.argtypes = [i, i, i, i, i, i]
     lib.vct_scan_plan.restype = i
-    lib.vct_selective_scan_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.vct_selective_scan_bwd.argtypes = [p] * 13 + [i, i, i, i, i, p]
     lib.vct_selective_scan_bwd.restype = i
-    lib.vct_selective_scan_bwd_scratch.argtypes = [i, i, i, i]
-    lib.vct_selective_scan_bwd_scratch.restype = ll
+    for name in ("vct_selective_scan_bwd_scratch", "vct_selective_scan_bwd_counters"):
+        getattr(lib, name).argtypes = [i, i, i, i]
+        getattr(lib, name).restype = ll
+    lib.vct_scan_bwd_plan.argtypes = [i, i, i, i]
+    lib.vct_scan_bwd_plan.restype = i
     lib.vct_rnn_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.vct_rnn_fwd.restype = i
     lib.vct_rnn_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
@@ -153,3 +164,17 @@ def fill_shared_memory(value: float) -> None:
     lib = load_kernels()
     check(lib, lib.vct_fill_shared(value, torch.cuda.current_stream().cuda_stream),
           "vct_fill_shared")
+
+
+def counters(device, stream: int, n: int):
+    """At least ``n`` zero int32 counters for kernels on ``stream`` of
+    ``device`` (a CUDA stream handle), which the kernels leave zero."""
+    import torch
+
+    c = _counters.get((device, stream))
+    if c is None or c.numel() < n:
+        if c is not None:
+            _outgrown.append(c)
+        c = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _counters[(device, stream)] = c
+    return c

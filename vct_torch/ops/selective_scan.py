@@ -8,13 +8,14 @@ at VideoMamba's) and how its design meets that: a channel's states spread
 across lanes, S states a lane, by a plan chosen from the shapes
 (``plan``). Any N.
 
-The backward is ``selective_scan_bwd``, the kernel of
-``vct_torch/csrc/selective_scan_bwd.cu`` (a reverse-time scan that recomputes
-h from checkpoints, then sums its per-block partials of dA, dB and dC in a
-second pass, so two runs are bit-equal); ``vct`` has no Pallas kernel there
-(its custom_vjp differentiates the associative scan). On CUDA,
-``selective_scan`` records an autograd node whose backward launches it when
-an input requires a gradient.
+The backward is ``selective_scan_bwd``, one launch of the kernel of
+``vct_torch/csrc/selective_scan_bwd.cu`` (the forward's layout under a plan
+of its own, ``bwd_plan``; each chunk's h recomputed into shared memory and
+walked backwards; the sums over channels and batch added by the last block
+to arrive, in a fixed order, so two runs are bit-equal); ``vct`` has no
+Pallas kernel there (its custom_vjp differentiates the associative scan).
+On CUDA, ``selective_scan`` records an autograd node whose backward launches
+it when an input requires a gradient.
 
 Both dispatch by device: a CPU tensor goes to the plain PyTorch version
 (``selective_scan_ref``, which autograd differentiates;
@@ -29,7 +30,7 @@ import torch
 
 from vct_torch.ops import _build
 
-__all__ = ["plan", "selective_scan", "selective_scan_bwd", "selective_scan_bwd_ref",
+__all__ = ["bwd_plan", "plan", "selective_scan", "selective_scan_bwd", "selective_scan_bwd_ref",
            "selective_scan_ref"]
 
 _MAX_GRID_Y = 65535
@@ -76,9 +77,10 @@ def selective_scan_ref(u, delta, A, B, C, reverse: bool = False) -> torch.Tensor
     return y
 
 
-def decode_plan(code: int, N: int) -> dict:
+def decode_plan(code: int, N: int, chunk_unit: int = 32) -> dict:
     """A plan as ``vct_scan_plan`` packs it (S | lanes << 4 | threads / 64 <<
-    16 | chunk / 32 << 20), with the state tiles it walks for N states."""
+    16 | chunk / 32 << 20), or ``vct_scan_bwd_plan`` with ``chunk_unit`` 8
+    (chunk / 8 << 20), with the state tiles it walks for N states."""
     S, lanes = code & 15, (code >> 4) & 4095
     return {
         "states_per_lane": S,
@@ -86,7 +88,7 @@ def decode_plan(code: int, N: int) -> dict:
         "warps_per_channel": max(1, lanes // 32),
         "state_tiles": max(1, -(-N // (lanes * S))),
         "block_threads": (code >> 16 & 15) * 64,
-        "chunk_steps": (code >> 20 & 15) * 32,
+        "chunk_steps": (code >> 20 & 15) * chunk_unit,
     }
 
 
@@ -113,6 +115,24 @@ def plan(batch: int, D: int, N: int) -> dict:
     threads and the most steps a chunk, as the kernel library decides it
     (``vct_scan_plan``)."""
     return decode_plan(plan_code(batch, D, N), N)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_layout(batch: int, L: int, D: int, N: int) -> tuple[int, int, int]:
+    """The backward's packed plan, scratch floats and counters at a shape,
+    as the kernel library decides them (by the shape alone, so kept)."""
+    lib = _build.load_kernels()
+    return tuple(f(batch, L, D, N) for f in (lib.vct_scan_bwd_plan,
+                                             lib.vct_selective_scan_bwd_scratch,
+                                             lib.vct_selective_scan_bwd_counters))
+
+
+def bwd_plan(batch: int, L: int, D: int, N: int) -> dict:
+    """How the backward kernel spreads each of a batch of D channels' N
+    states over L steps (``vct_scan_bwd_plan``): states a lane, lanes and
+    warps a channel, state tiles, the block's threads and the steps a chunk.
+    Read-only: no plan can be forced."""
+    return decode_plan(_bwd_layout(batch, L, D, N)[0], N, chunk_unit=8)
 
 
 def _launch(u, delta, A, B, C, reverse: bool, code: int) -> torch.Tensor:
@@ -201,8 +221,8 @@ def selective_scan_bwd_ref(u, delta, A, B, C, gy, reverse: bool = False):
 def selective_scan_bwd(u, delta, A, B, C, gy, reverse: bool = False):
     """K3 backward: (du, ddelta, dA, dB, dC) of ``selective_scan(u, delta, A,
     B, C, reverse)`` against its output gradient gy (B, L, D). A CPU tensor
-    goes to ``selective_scan_bwd_ref``; on CUDA the kernel runs (the same
-    checks as the forward) or this raises."""
+    goes to ``selective_scan_bwd_ref``; on CUDA the kernel runs, one launch
+    under ``bwd_plan`` (the same checks as the forward), or this raises."""
     _validate(u, delta, A, B, C)
     if tuple(gy.shape) != tuple(u.shape):
         raise ValueError(f"selective_scan_bwd wants gy of shape {tuple(u.shape)}, "
@@ -216,14 +236,19 @@ def selective_scan_bwd(u, delta, A, B, C, gy, reverse: bool = False):
     grads = [torch.empty_like(t) for t in (u, delta, A, B, C)]
     if u.numel() == 0 or N == 0:
         return tuple(g.zero_() for g in grads)
+    _, n_scratch, n_counters = _bwd_layout(batch, L, D, N)
     lib = _build.load_kernels()
-    scratch = torch.empty(lib.vct_selective_scan_bwd_scratch(batch, L, D, N),
-                          dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        scratch = (torch.empty(n_scratch, dtype=torch.float32, device=u.device)
+                   if n_scratch else None)
+        counters = _build.counters(u.device, stream, n_counters) if n_counters else None
         err = lib.vct_selective_scan_bwd(
             *(t.data_ptr() for t in (u, delta, A, B, C, gy)),
-            *(g.data_ptr() for g in grads), scratch.data_ptr(),
-            batch, L, D, N, int(reverse), torch.cuda.current_stream().cuda_stream,
+            *(g.data_ptr() for g in grads),
+            None if scratch is None else scratch.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            batch, L, D, N, int(reverse), stream,
         )
     _build.check(lib, err, "selective_scan_bwd kernel launch")
     selective_scan_bwd.launches += 1

@@ -208,25 +208,6 @@ def ssim_pair_scores(clips: torch.Tensor, win: int = 3,
     return out
 
 
-# The kernel's (clip, chunk) counters, one tensor per (device, stream): zero
-# before a launch and set back to zero by the launch's last block of each
-# (clip, chunk), so they are allocated once and never cleared by the host,
-# and launches on two streams never share one. A tensor outgrown is kept,
-# not freed: a CUDA graph captured with it still writes there.
-_counters: dict = {}
-_outgrown: list = []
-
-
-def _counter(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    c = _counters.get((device, stream))
-    if c is None or c.numel() < n:
-        if c is not None:
-            _outgrown.append(c)
-        c = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _counters[(device, stream)] = c
-    return c
-
-
 def _launch(clips: torch.Tensor, p: dict, constants) -> torch.Tensor:
     """The kernel under plan ``p`` on contiguous uint8 CUDA clips, no
     checks, no count."""
@@ -239,7 +220,7 @@ def _launch(clips: torch.Tensor, p: dict, constants) -> torch.Tensor:
         if p["bands"] > 1:
             partial = torch.empty((B, L - 1, p["bands"]), dtype=torch.float64,
                                   device=clips.device)
-            counter = _counter(clips.device, stream, B * p["chunks"])
+            counter = _build.counters(clips.device, stream, B * p["chunks"])
         err = lib.vct_ssim_pair_scores(
             clips.data_ptr(), out.data_ptr(),
             None if partial is None else partial.data_ptr(),
