@@ -113,7 +113,32 @@ line):
     the head's step alone, and a ``torch.profiler`` breakdown of a step's
     device time by kernel; one train step each of the GRU and bidirectional
     UCF50 heads, launches checked;
-12. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
+12. resume, observability, warm start and weight import — for both
+    configurations at full width, ``python -m vct_torch.train``'s main with
+    dropout 0.25 and the plateau decay on (``RESUME_ARGS``: a learning rate of
+    1e-11 moves the val loss by far less than the plateau's 1e-6, so the
+    learning rate is lowered at epochs 2 and 3 by construction): 3 epochs
+    uninterrupted, then with ``train.resume`` crashed after epoch 1 and after
+    epoch 2 and resumed to 3, the last part with ``train.history_path``,
+    ``train.log_every 1`` and ``train.profile_dir``; the final parameters and
+    the three epoch losses must be bit-equal to the uninterrupted run's, each
+    resumed epoch must launch the kernels as often as the same uninterrupted
+    epoch (counters read around each epoch's train loop), the history must
+    hold three epochs and the step times, one step line a step, and the
+    trace's K3 or K2 forward and backward kernels must number what the
+    counters counted in the traced epoch; ``save_train_state``'s time and
+    file size are printed; a fourth Trainer with ``train.init_from`` the
+    resumed checkpoint must start bit-equal to it. Then a seeded torchvision
+    resnet50 state_dict (key list written out here) goes through
+    ``model.backbone_weights`` into the deployed model, each tensor checked
+    by an independent name map; a seeded reference-LRCN state_dict of the
+    deployed config through ``vct_torch.tools.port_reference`` on the card
+    and on the CPU; ``load_model`` on both; one 4-video SAD request served on
+    the card through ``classify_and_display`` (K1 and K3 launches checked),
+    its frames the CPU's (pixels within 1e-6: the card's /255 multiplies by
+    the reciprocal) and its logits within 1e-4 (atol = rtol, TF32 off),
+    labels equal;
+13. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
     launches, error, time, plain time, bound and, for K2/K5, the design,
     ``us_per_step`` (device time over T*L) and cuDNN's ``nn.LSTM`` /
     ``nn.GRU`` time (``library_ms`` by events; ``library_device_ms`` replayed
@@ -1357,6 +1382,392 @@ def _train_path(torch, gen, gpu) -> dict:
     return {n: totals[n] + launches[n] for n in totals}
 
 
+# The resume phase: both configurations at full width, dropout on, and a
+# learning rate (1e-11) that moves the val loss far less than the plateau's
+# 1e-6: the plateau lowers the learning rate at epochs 2 and 3 by
+# construction, and a run is "crashed" after epoch 1 and again after epoch 2,
+# so the restored dropout generator, Adam moments, step count and lowered
+# learning rate all reach the resumed run's result.
+RESUME_EPOCHS = 3
+RESUME_ARGS = {"model.dropout": "0.25", "train.learning_rate": "1e-11",
+               "train.lr_plateau_factor": "0.5", "train.lr_plateau_patience": "1"}
+# Kernel function names in a torch.profiler trace, by the launch counters
+# whose launches they are.
+TRACE_KERNELS = {
+    "selective_scan": (("selective_scan",), ("selective_scan_kernel",)),
+    "selective_scan_bwd": (("selective_scan_bwd",), ("scan_bwd_kernel",)),
+    "lstm_gru": (tuple(RNN_KERNELS), ("rnn_reg_kernel", "rnn_stack_kernel")),
+    "lstm_gru_bwd": (tuple(n for n in BWD_KERNELS if n != "selective_scan_bwd"),
+                     ("rnn_bwd_reg_kernel", "rnn_bwd_cols_kernel")),
+}
+
+
+def _trace_kernel_counts(path) -> dict:
+    """Device kernels of a Chrome trace (``torch.profiler``'s) by
+    ``TRACE_KERNELS`` group: events of category "kernel" whose name holds
+    one of the group's function names."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    return {group: sum(any(k in n for k in kernels) for n in names)
+            for group, (_, kernels) in TRACE_KERNELS.items()}
+
+
+def _nonzero(counts: dict) -> dict:
+    return {n: c for n, c in counts.items() if c}
+
+
+def _counted_groups(launches: dict) -> dict:
+    """Launch counters summed by ``TRACE_KERNELS`` group."""
+    return {group: sum(launches.get(c, 0) for c in counters)
+            for group, (counters, _) in TRACE_KERNELS.items()}
+
+
+# The torchvision ResNet layouts, written out here independently of the
+# porter: (block, blocks a stage), conv weights OIHW.
+TORCHVISION_RESNETS = {"resnet18": ("basic", (2, 2, 2, 2)), "resnet50": ("bottleneck", (3, 4, 6, 3))}
+
+
+def _torchvision_resnet_keys(name: str) -> dict:
+    """torchvision's ResNet state_dict layout: key -> shape, ``fc`` included."""
+    block, stages = TORCHVISION_RESNETS[name]
+    keys = {"conv1.weight": (64, 3, 7, 7)}
+
+    def bn(prefix, c):
+        keys.update({f"{prefix}.weight": (c,), f"{prefix}.bias": (c,),
+                     f"{prefix}.running_mean": (c,), f"{prefix}.running_var": (c,),
+                     f"{prefix}.num_batches_tracked": ()})
+
+    bn("bn1", 64)
+    cin, expansion = 64, (4 if block == "bottleneck" else 1)
+    for stage, (width, n) in enumerate(zip((64, 128, 256, 512), stages), start=1):
+        out = width * expansion
+        for b in range(n):
+            p = f"layer{stage}.{b}"
+            first_in = cin if b == 0 else out
+            if block == "bottleneck":
+                convs = [(width, first_in, 1), (width, width, 3), (out, width, 1)]
+            else:
+                convs = [(width, first_in, 3), (width, width, 3)]
+            for i, (co, ci, k) in enumerate(convs, start=1):
+                keys[f"{p}.conv{i}.weight"] = (co, ci, k, k)
+                bn(f"{p}.bn{i}", co)
+            if b == 0 and (stage > 1 or cin != out):
+                keys[f"{p}.downsample.0.weight"] = (out, cin, 1, 1)
+                bn(f"{p}.downsample.1", out)
+        cin = out
+    keys.update({"fc.weight": (1000, cin), "fc.bias": (1000,)})
+    return keys
+
+
+def _reference_lrcn_keys(model_cfg, seq_len: int) -> dict:
+    """The reference LRCN's state_dict layout (``medsos_lrcn/src/models.py:
+    121-186``) for ``model_cfg``: key -> shape."""
+    keys = {f"cnn_backbone.{k}": s for k, s in _torchvision_resnet_keys(model_cfg.cnn_backbone).items()
+            if not k.startswith("fc.")}
+    f = keys["cnn_backbone.layer4.0.downsample.0.weight"][0]
+    r, h, layers = model_cfg.rnn_input_size, model_cfg.resolved_hidden_size, model_cfg.rnn_layer
+    for i, (fin, fout) in enumerate(((f, f // 2), (f // 2, f // 4), (f // 4, r)), start=1):
+        keys.update({f"adapt{i}.weight": (fout, fin), f"adapt{i}.bias": (fout,),
+                     f"bn{i}.weight": (fout,), f"bn{i}.bias": (fout,)})
+    if model_cfg.rnn_type == "mamba":
+        d = 2 * r  # d_inner; n_state = dt_rank = hidden
+        for i in range(layers):
+            m = f"rnn.{i}.mixer"
+            keys.update({f"rnn.{i}.norm.weight": (r,), f"{m}.A_log": (d, h), f"{m}.D": (d,),
+                         f"{m}.in_proj.weight": (2 * d, r), f"{m}.in_proj.bias": (2 * d,),
+                         f"{m}.conv1d.weight": (d, 1, 3), f"{m}.conv1d.bias": (d,),
+                         f"{m}.x_proj.weight": (h + 2 * h, d),
+                         f"{m}.dt_proj.weight": (d, h), f"{m}.dt_proj.bias": (d,),
+                         f"{m}.out_proj.weight": (r, 2 * d if model_cfg.bidirectional else d),
+                         f"{m}.out_proj.bias": (r,)})
+        width = r
+    else:
+        gh = (4 if model_cfg.rnn_type == "lstm" else 3) * h
+        dirs = ("", "_reverse") if model_cfg.bidirectional else ("",)
+        for layer in range(layers):
+            fin = r if layer == 0 else h * len(dirs)
+            for s in dirs:
+                keys.update({f"rnn.weight_ih_l{layer}{s}": (gh, fin),
+                             f"rnn.weight_hh_l{layer}{s}": (gh, h),
+                             f"rnn.bias_ih_l{layer}{s}": (gh,), f"rnn.bias_hh_l{layer}{s}": (gh,)})
+        width = h * len(dirs)
+    pooled, c = width * (seq_len if model_cfg.rnn_out == "all" else 1), model_cfg.num_classes
+    if model_cfg.classif_mode == "multiclass":
+        for name, fin, fout in (("fc", pooled, pooled // 2), ("fca", pooled // 2, pooled // 4),
+                                ("fcb", pooled // 4, c)):
+            keys.update({f"{name}.weight": (fout, fin), f"{name}.bias": (fout,)})
+        for name, n in (("bn0", pooled), ("bna", pooled // 2), ("bnb", pooled // 4)):
+            keys.update({f"{name}.weight": (n,), f"{name}.bias": (n,)})
+    else:
+        for i in range(c):
+            keys.update({f"fc.{i}.weight": (1, pooled), f"fc.{i}.bias": (1,)})
+    return keys
+
+
+def _seeded_state_dict(torch, keys: dict, seed: int) -> dict:
+    """Tensors for a key -> shape layout from a numpy seed: weights of two
+    or more dimensions N(0, 1/fan_in); norms' and BatchNorms' weights near
+    1, running variances in [0.5, 1.5); other vectors N(0, 0.1)."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for key, shape in keys.items():
+        if key.endswith("num_batches_tracked"):
+            out[key] = torch.tensor(0)
+            continue
+        if key.endswith("running_var"):
+            v = 0.5 + rng.rand(*shape)
+        elif len(shape) >= 2:
+            v = rng.randn(*shape) / np.sqrt(np.prod(shape[1:]))
+        elif key.endswith(".weight"):  # norms and BatchNorms
+            v = 1.0 + 0.1 * rng.randn(*shape)
+        else:
+            v = 0.1 * rng.randn(*shape)
+        out[key] = torch.from_numpy(np.asarray(v, np.float32))
+    return out
+
+
+def _torchvision_to_port(name: str) -> str:
+    """A torchvision ResNet key's name in the port's backbone."""
+    name = re.sub(r"^layer(\d)\.(\d+)\.", r"layer\1_\2.", name)
+    return name.replace("downsample.0.", "downsample_conv.").replace("downsample.1.", "downsample_bn.")
+
+
+def _resume_path(torch, gpu, label, model: dict, seq_len: int, tmp: Path) -> dict:
+    """``python -m vct_torch.train``'s main at full width: an uninterrupted
+    run of RESUME_EPOCHS epochs, then the same run crashed after epoch 1 and
+    after epoch 2 and resumed to the end (``train.resume``), its last part
+    with ``train.history_path``, ``train.log_every 1`` and
+    ``train.profile_dir``. Holds the final parameters, the epoch losses and
+    the launches of each resumed epoch equal to the uninterrupted run's, the
+    trace's kernels to the launch counters of its epoch; then a fourth
+    Trainer warm-starts from the checkpoint (``train.init_from``)."""
+    import contextlib
+    import io
+    import os
+
+    from vct_torch.core.config import Config
+    from vct_torch.train import engine
+    from vct_torch.train.__main__ import main as train_main
+    from vct_torch.train.checkpoint import load_checkpoint
+
+    overrides = {"data.synthetic": "true", "data.synthetic_samples": str(TRAIN_SAMPLES),
+                 "data.sequence_length": str(seq_len), "train.batch_size": str(TRAIN_BATCH),
+                 "model.compute_dtype": "bfloat16", **RESUME_ARGS,
+                 **{f"model.{k}": str(v) for k, v in model.items()}}
+    counters = _train_counters()
+    epochs, saves = [], []  # launches of each epoch's train loop; (ms, MB) of each save
+    real_trace, real_save = engine.device_trace, engine.save_train_state
+
+    @contextlib.contextmanager
+    def counted_trace(log_dir, device="cpu"):
+        before = {n: fn.launches for n, fn in counters.items()}
+        with real_trace(log_dir, device):
+            yield
+        epochs.append({n: fn.launches - before[n] for n, fn in counters.items()})
+
+    def timed_save(path, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_save(path, *args, **kwargs)
+        saves.append(((time.perf_counter() - t0) * 1e3,
+                      os.path.getsize(os.path.join(out, "train_state.pt")) / 1e6))
+        return out
+
+    def run(n_epochs, path, **extra):
+        argv = [a for k, v in {**overrides, "train.epochs": str(n_epochs),
+                               "train.model_path": str(path), **extra}.items()
+                for a in (f"--{k}", v)]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                mock.patch.object(engine, "device_trace", counted_trace), \
+                mock.patch.object(engine, "save_train_state", timed_save):
+            rc = train_main(argv)
+        if rc != 0:
+            raise AssertionError(f"{label}: train main rc {rc}")
+        return out.getvalue()
+
+    t0 = time.perf_counter()
+    out_u = run(RESUME_EPOCHS, tmp / "whole", **{"train.history_path": str(tmp / "whole.json")})
+    whole = list(epochs)
+    decays = [l for l in out_u.splitlines() if l.startswith("Reducing learning rate")]
+    if len(decays) != RESUME_EPOCHS - 1:
+        raise AssertionError(f"{label}: the plateau fired {len(decays)} times, not at epochs "
+                             f"2..{RESUME_EPOCHS}: {decays}")
+    ck = tmp / "resumed"
+    epochs.clear()
+    run(1, ck, **{"train.resume": "true", "train.save_model": "false"})
+    out_2 = run(2, ck, **{"train.resume": "true", "train.save_model": "false"})
+    out_3 = run(RESUME_EPOCHS, ck, **{"train.resume": "true", "train.log_every": "1",
+                                      "train.history_path": str(tmp / "resumed.json"),
+                                      "train.profile_dir": str(tmp / "trace")})
+    seconds = time.perf_counter() - t0
+    for out, epoch in ((out_2, 1), (out_3, 2)):
+        if f"Resuming training from epoch {epoch}" not in out or decays[epoch - 1] not in out:
+            raise AssertionError(f"{label}: the run resumed at epoch {epoch} did not resume, "
+                                 f"or did not lower the learning rate as the whole run did")
+    # (a) the resumed run against the uninterrupted one, bit for bit
+    hist_u = json.loads((tmp / "whole.json").read_text())
+    hist_r = json.loads((tmp / "resumed.json").read_text())
+    for key in ("train_loss", "train_acc", "val_loss"):
+        if hist_r[key] != hist_u[key] or len(hist_r[key]) != RESUME_EPOCHS:
+            raise AssertionError(f"{label}: resumed {key} {hist_r[key]} != uninterrupted "
+                                 f"{hist_u[key]}")
+    final_u, final_r = load_checkpoint(str(tmp / "whole"))[0], load_checkpoint(str(ck))[0]
+    differ = [k for k in final_u if not torch.equal(final_u[k], final_r[k])]
+    if differ or set(final_u) != set(final_r):
+        raise AssertionError(f"{label}: resumed parameters differ from the uninterrupted run's "
+                             f"at {differ[:8]}")
+    if epochs[1:] != whole[1:]:
+        raise AssertionError(f"{label}: launches of the resumed epochs {epochs[1:]} != the "
+                             f"uninterrupted run's {whole[1:]}")
+    # (b) observability of the resumed run
+    steps = -(-(TRAIN_SAMPLES - int(round(TRAIN_SAMPLES * 0.2))) // TRAIN_BATCH)
+    step_lines = [l for l in out_3.splitlines() if l.startswith("step ")]
+    if hist_r["step_times"].get("steps") != steps or len(step_lines) != steps:
+        raise AssertionError(f"{label}: {len(step_lines)} step lines and step_times "
+                             f"{hist_r['step_times']}, expected {steps} steps")
+    traces = sorted((tmp / "trace").glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"{label}: train.profile_dir holds {traces}, not one trace")
+    in_trace, counted = _trace_kernel_counts(traces[0]), _counted_groups(epochs[-1])
+    if in_trace != counted or not any(counted.values()):
+        raise AssertionError(f"{label}: kernels in the trace {in_trace} != launch counters of "
+                             f"the traced epoch {counted}")
+    # (c) a warm start from the resumed run's checkpoint
+    cfg = Config().replace(**overrides, **{"train.init_from": str(ck), "train.seed": "7"})
+    trainer = engine.Trainer(cfg, [f"class_{i}" for i in range(cfg.model.num_classes)])
+    trainer.init_state()
+    warm = trainer.model.state_dict()
+    differ = [k for k in final_r if not torch.equal(warm[k].cpu(), final_r[k])]
+    if differ or set(warm) != set(final_r):
+        raise AssertionError(f"{label}: init_from parameters differ from the checkpoint's at "
+                             f"{differ[:8]}")
+    del trainer, warm
+    torch.cuda.empty_cache()
+    out = {"config": label, "resume": "bit-equal", "epochs": RESUME_EPOCHS,
+           "losses": hist_r["train_loss"], "plateau": decays,
+           "launches_per_epoch": [_nonzero(e) for e in whole],
+           "resumed_launches": [_nonzero(e) for e in epochs[1:]],
+           "trace_kernels": in_trace, "trace_file_mb": traces[0].stat().st_size / 1e6,
+           "step_lines": len(step_lines), "init_from": "bit-equal",
+           "save_train_state_ms": [s[0] for s in saves],
+           "train_state_mb": saves[0][1], "four_runs_s": seconds, "gpu": gpu}
+    print(json.dumps(out))
+    return out
+
+
+def _weights_path(torch, gpu, tmp: Path) -> dict:
+    """A seeded torchvision ResNet state_dict through ``model.backbone_weights``
+    into the deployed model, each tensor checked against the key map written
+    here; a seeded reference-LRCN state_dict of the deployed config through
+    ``python -m vct_torch.tools.port_reference`` on the card and on the CPU,
+    ``load_model`` on both, and one 4-video SAD request served on the card
+    (launches of K1 and K3 counted), its logits within 1e-4 of the CPU's
+    and its labels equal."""
+    from vct_torch.core.config import Config, ModelConfig
+    from vct_torch.ops.pair_scores import pair_scores
+    from vct_torch.ops.selective_scan import selective_scan
+    from vct_torch.serve.deployment import classify_and_display, load_model, sample_decoded_clips
+    from vct_torch.tools.port_reference import main as port_main
+    from vct_torch.train.engine import Trainer
+
+    from vct_torch.device import resolve_device
+
+    model_cfg = ModelConfig(**DEPLOYED)
+    tv = _seeded_state_dict(torch, _torchvision_resnet_keys(model_cfg.cnn_backbone), seed=11)
+    torch.save(tv, tmp / "backbone.pth")
+    overrides = {"data.sequence_length": str(T), "model.compute_dtype": "bfloat16",
+                 "model.backbone_weights": str(tmp / "backbone.pth"),
+                 **{f"model.{k}": str(v) for k, v in DEPLOYED.items()}}
+    cfg = Config().replace(**overrides)
+    trainer = Trainer(cfg, [f"class_{i}" for i in range(cfg.model.num_classes)])
+    trainer.init_state()
+    ported = trainer.model.state_dict()
+    for key, value in tv.items():
+        if key.startswith("fc.") or key.endswith("num_batches_tracked"):
+            continue
+        if not torch.equal(ported[f"cnn_backbone.{_torchvision_to_port(key)}"].cpu(), value):
+            raise AssertionError(f"backbone_weights: {key} was not ported as written")
+    with torch.no_grad():
+        clip = torch.rand(2, T, H, W, 3, device=trainer.device)
+        feats = trainer.model(clip, features_only=True)
+    if feats.shape[:2] != (2, T) or not bool(torch.isfinite(feats).all()):
+        raise AssertionError(f"backbone_weights: features {tuple(feats.shape)} not finite")
+    del trainer, ported
+
+    ref = _seeded_state_dict(torch, _reference_lrcn_keys(model_cfg, T), seed=12)
+    torch.save(ref, tmp / "reference_lrcn.pth")
+    names = [f"label_{i}" for i in range(model_cfg.num_classes)]
+    argv = ["--state_dict", str(tmp / "reference_lrcn.pth"), "--num_classes",
+            str(model_cfg.num_classes), "--sequence_length", str(T), "--cnn_backbone",
+            model_cfg.cnn_backbone, "--rnn_type", model_cfg.rnn_type, "--rnn_input_size",
+            str(model_cfg.rnn_input_size), "--rnn_layer", str(model_cfg.rnn_layer),
+            "--scan_impl", model_cfg.scan_impl, "--classes", ",".join(names)]
+    t0 = time.perf_counter()
+    if port_main(argv + ["--out", str(tmp / "ported")]) != 0:
+        raise AssertionError("port_reference failed on the card")
+    port_s = time.perf_counter() - t0
+    if port_main(argv + ["--out", str(tmp / "ported_cpu"), "--device", "cpu"]) != 0:
+        raise AssertionError("port_reference failed on the CPU")
+    model, class_names, _ = load_model(str(tmp / "ported"))
+    model_cpu, _, _ = load_model(str(tmp / "ported_cpu"), device="cpu")
+    if class_names != names or next(model.parameters()).device.type != resolve_device().type:
+        raise AssertionError(f"load_model: {class_names} on {next(model.parameters()).device}")
+
+    lengths = [50, 90, 130, 200]
+    videos = _synthetic_videos(lengths, seed=13)
+    video_names = [f"@user{i}_video_{3000 + i}.mp4" for i in range(len(videos))]
+    for fn in (pair_scores, selective_scan):
+        fn.launches = 0
+    clips = sample_decoded_clips(videos, "sad", T)
+    results = classify_and_display(model, clips, video_names, class_names, batch_size=4)
+    torch.cuda.synchronize()
+    launches = {"pair_scores": pair_scores.launches, "selective_scan": selective_scan.launches}
+    want = {"pair_scores": sum(n > T for n in lengths), "selective_scan": model_cfg.rnn_layer}
+    if launches != want:
+        raise AssertionError(f"load_model request: launches {launches} != expected {want}")
+    _check_served(results, video_names)
+    # The same frames on both (the SAD scores are exact, ties break to the
+    # lower index); the card's /255 multiplies by the reciprocal, so a pixel
+    # may differ by its last bit, while another frame would differ by 1/255.
+    clips_cpu = sample_decoded_clips(videos, "sad", T, device="cpu")
+    frame_err = (clips.cpu() - clips_cpu).abs().max().item()
+    if frame_err > 1e-6:
+        raise AssertionError(f"load_model request: card and CPU selected different frames "
+                             f"(largest pixel difference {frame_err})")
+    with torch.inference_mode():
+        logits = model(clips).cpu()
+        logits_cpu = model_cpu(clips_cpu)
+    torch.testing.assert_close(logits, logits_cpu, atol=1e-4, rtol=1e-4)
+    labels = [r["labels"][0] for r in results]
+    labels_cpu = [class_names[i] for i in logits_cpu.argmax(dim=-1).tolist()]
+    if labels != labels_cpu:
+        raise AssertionError(f"load_model request: labels {labels} != the CPU's {labels_cpu}")
+    out = {"config": "deployed_mamba", "backbone_weights": "ported as written",
+           "port_reference_s": port_s, "launches": launches, "frames_max_abs_err": frame_err,
+           "logits_max_abs_err": (logits - logits_cpu).abs().max().item(), "labels": labels,
+           "gpu": gpu}
+    print(json.dumps(out))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _resume_and_weights(torch, gpu) -> None:
+    """Resume, observability and the warm start for both configurations,
+    then the weight import and ``load_model``'s served request."""
+    import tempfile
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, (model, seq_len) in TRAIN_CONFIGS.items():
+            (Path(tmp) / label).mkdir()
+            _resume_path(torch, gpu, label, model, seq_len, Path(tmp) / label)
+        _weights_path(torch, gpu, Path(tmp))
+    print(f"resume and weights phase: {time.perf_counter() - t0:.1f} s")
+
+
 def _bwd_timing(torch, gen, name, dims) -> dict:
     """One backward entry point at the main path's shape: time by events and
     from a CUDA graph, autograd through the plain version (its forward
@@ -1800,6 +2211,7 @@ def main(argv: list[str]) -> int:
         c["normalize_frames"] for c in (launches, ssim_launches, rnn_launches))
     train_launches = _train_path(torch, gen, gpu)
     print(f"training path launches over both configurations {train_launches}")
+    _resume_and_weights(torch, gpu)
     kernels = _kernel_timings(torch, gen, launches, errs, gpu)
     kernels += _bwd_rows(torch, gen, train_launches, bwd_errs)
     print(json.dumps({"kernels": kernels, "gpu": gpu}))

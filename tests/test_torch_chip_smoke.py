@@ -136,3 +136,101 @@ def test_backward_rows_name_their_sources_and_the_vct_backward_they_replace():
         path, line = replaces.rsplit(":", 1)
         text = (root / path).read_text().splitlines()[int(line) - 1]
         assert "def " in text and "bwd" in text, (name, text)
+
+
+# ---------------------------------------------------------------------------
+# the resume and weights phase
+
+
+@pytest.mark.parametrize("classif_mode", ["multiclass", "multiple_binary"])
+@pytest.mark.parametrize("rnn_type", ["lstm", "gru", "mamba"])
+def test_reference_key_list_is_the_reference_layout_and_ports_in_full(rnn_type, classif_mode):
+    """At a small config, the phase's reference-LRCN key list is the
+    state_dict layout of the reference-layout torch LRCN of
+    tests/test_lrcn_port.py, key for key and shape for shape, and
+    ``port_reference_lrcn`` consumes a seeded dict of it in full, each
+    tensor landing as written."""
+    import torch
+    from test_lrcn_port import CLASSES, HIDDEN, LAYERS, RNN_INPUT, T, TRefLRCNExact
+
+    from vct_torch.core.config import ModelConfig
+    from vct_torch.models import build_model
+    from vct_torch.models.lrcn_port import port_reference_lrcn
+
+    cfg = ModelConfig(num_classes=CLASSES, cnn_backbone="resnet18", rnn_type=rnn_type,
+                      rnn_input_size=RNN_INPUT, rnn_layer=LAYERS, hidden_size=HIDDEN,
+                      classif_mode=classif_mode)
+    keys = chip_smoke._reference_lrcn_keys(cfg, T)
+    reference = TRefLRCNExact(rnn_type, "all", classif_mode).state_dict()
+    assert keys == {k: tuple(v.shape) for k, v in reference.items()}
+    sd = chip_smoke._seeded_state_dict(torch, keys, seed=0)
+    model = port_reference_lrcn(build_model(cfg, T, device="cpu"), sd, cfg)
+    ported = model.state_dict()
+    assert torch.equal(ported["cnn_backbone.layer2_0.downsample_conv.weight"],
+                       sd["cnn_backbone.layer2.0.downsample.0.weight"])
+    assert torch.equal(ported["adapt.bn3.weight"], sd["bn3.weight"])
+    if rnn_type == "mamba":
+        assert torch.equal(ported["mamba_1.mixer.conv.weight"], sd["rnn.1.mixer.conv1d.weight"])
+    else:
+        assert torch.equal(ported[f"rnn.{rnn_type}.weight_hh_l1"], sd["rnn.weight_hh_l1"].T)
+
+
+def test_bidirectional_and_last_key_lists_port_in_full():
+    import torch
+
+    from vct_torch.core.config import ModelConfig
+    from vct_torch.models import build_model
+    from vct_torch.models.lrcn_port import port_reference_lrcn
+
+    for kw in ({"rnn_type": "gru", "bidirectional": True, "rnn_out": "last"},
+               {"rnn_type": "mamba", "bidirectional": True}):
+        cfg = ModelConfig(cnn_backbone="resnet18", rnn_input_size=8, hidden_size=6, rnn_layer=2,
+                          **kw)
+        sd = chip_smoke._seeded_state_dict(torch, chip_smoke._reference_lrcn_keys(cfg, 5), 1)
+        port_reference_lrcn(build_model(cfg, 5, device="cpu"), sd, cfg)
+
+
+def test_torchvision_key_lists_map_onto_the_ports_resnets():
+    """resnet18's list is tests/test_weight_port.py's, written out apart;
+    resnet50's maps key for key, by the phase's name map, onto the port's
+    resnet50 with the same shapes, ``fc`` aside."""
+    from test_weight_port import _torchvision_resnet18_keys
+
+    from vct_torch.models.backbones.resnet import resnet50
+
+    assert chip_smoke._torchvision_resnet_keys("resnet18") == _torchvision_resnet18_keys()
+    keys = chip_smoke._torchvision_resnet_keys("resnet50")
+    ours = {k: tuple(v.shape) for k, v in resnet50().state_dict().items()}
+    mapped = {chip_smoke._torchvision_to_port(k): s for k, s in keys.items()
+              if not k.startswith("fc.")}
+    assert mapped == ours and len(keys) == len(ours) + 2
+
+
+_TRACE = {"traceEvents": [
+    {"ph": "X", "cat": "kernel", "name": "void (anonymous namespace)::rnn_reg_kernel<4, 1, 14>"
+                                         "(float const*, float const*, float*, int, int, int)"},
+    {"ph": "X", "cat": "kernel", "name": "void (anonymous namespace)::rnn_reg_kernel<4, 1, 14>"
+                                         "(float const*, float const*, float*, int, int, int)"},
+    {"ph": "X", "cat": "kernel",
+     "name": "_ZN44_GLOBAL__N__c67ee736_11_lstm_bwd_cu_2819a04d18rnn_bwd_reg_kernelILi4ELi2ELi8E"},
+    {"ph": "X", "cat": "kernel", "name": "void rnn_bwd_cols_kernel<3>(float const*)"},
+    {"ph": "X", "cat": "Kernel", "name": "void scan_bwd_kernel<1, 32>(float const*)"},
+    {"ph": "X", "cat": "kernel", "name": "void selective_scan_kernel<2>(float const*)"},
+    {"ph": "X", "cat": "kernel", "name": "ampere_sgemm_128x64_nn"},
+    {"ph": "X", "cat": "cpu_op", "name": "selective_scan_kernel"},
+    {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel"},
+    {"ph": "M", "name": "process_name"},
+]}
+
+
+def test_trace_reader_counts_each_kernel_group(tmp_path):
+    import json
+
+    path = tmp_path / "host_1.2.pt.trace.json"
+    path.write_text(json.dumps(_TRACE))
+    assert chip_smoke._trace_kernel_counts(path) == {
+        "selective_scan": 1, "selective_scan_bwd": 1, "lstm_gru": 2, "lstm_gru_bwd": 2}
+    launches = {"selective_scan": 1, "selective_scan_bwd": 1, "lstm_stack": 1, "gru_scan": 1,
+                "lstm_stack_bwd": 1, "gru_scan_bwd": 1, "normalize_frames": 5}
+    assert chip_smoke._counted_groups(launches) == chip_smoke._trace_kernel_counts(path)
+    assert chip_smoke._nonzero({"a": 0, "b": 2}) == {"b": 2}

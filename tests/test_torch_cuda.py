@@ -934,3 +934,115 @@ def test_finetune_train_step_updates_only_the_unfrozen_backbone(cuda_device):
         assert torch.equal(p, before[name]) == frozen, name
     for name, buf in model.named_buffers():
         assert torch.equal(buf, before[name]), name
+
+
+def _resume_overrides(tmp_path, rnn_type):
+    return {"model.cnn_backbone": "resnet18", "model.rnn_type": rnn_type,
+            "model.rnn_input_size": "8", "model.hidden_size": "6", "model.rnn_layer": "2",
+            "model.scan_impl": "pallas", "model.dropout": "0.25", "data.sequence_length": "4",
+            "data.img_height": "32", "data.img_width": "32", "train.batch_size": "4",
+            "train.learning_rate": "1e-11", "train.lr_plateau_factor": "0.5",
+            "train.lr_plateau_patience": "1", "train.model_path": str(tmp_path / "ck")}
+
+
+@pytest.mark.parametrize("rnn_type", ["mamba", "lstm"])
+def test_resume_on_the_card_is_bit_equal_to_the_uninterrupted_run(cuda_device, tmp_path,
+                                                                   rnn_type):
+    """Crashed after epochs 1 and 2 and resumed to 3 on the card (dropout,
+    Adam, the plateau's lowered learning rate all in the saved state), a
+    run's parameters and epoch and val losses equal an uninterrupted run's
+    bit for bit, its resumed epochs launching the kernels as often."""
+    from vct_torch.core.config import Config
+    from vct_torch.data.synthetic import generate_dummy_data
+    from vct_torch.train.engine import Trainer
+
+    x, y, names = generate_dummy_data(12, 4, 32, 32, 4, seed=1)
+    counters = (selective_scan, scan_ops.selective_scan_bwd, rnn_ops.lstm_stack,
+                rnn_ops.lstm_stack_bwd)
+
+    def fit(epochs, resume):
+        cfg = Config().replace(**_resume_overrides(tmp_path, rnn_type),
+                               **{"train.epochs": str(epochs), "train.resume": resume})
+        trainer = Trainer(cfg, names)
+        for fn in counters:
+            fn.launches = 0
+        state, run = trainer.fit(trainer.init_state(), x, y, val=(x[:4], y[:4]), log=False)
+        torch.cuda.synchronize()
+        return trainer.model.state_dict(), run, [fn.launches for fn in counters]
+
+    whole, run_whole, launches_whole = fit(3, "false")
+    fit(1, "true")
+    fit(2, "true")
+    resumed, run, launches_last = fit(3, "true")
+    assert (run.epoch_losses, run.val_losses) == (run_whole.epoch_losses, run_whole.val_losses)
+    for name, value in whole.items():
+        assert torch.equal(resumed[name], value), name
+    assert launches_last == [n // 3 for n in launches_whole] and any(launches_last)
+
+
+def test_train_state_restores_across_devices(cuda_device, tmp_path):
+    """A train state saved on the card restores into a trainer on the CPU
+    and the other way round: weights, Adam's state and the step move to the
+    trainer's device; a dropout generator of another device type keeps its
+    seed, with a warning."""
+    import contextlib
+    import io
+
+    from vct_torch.core.config import Config
+    from vct_torch.train.checkpoint import load_train_state, save_train_state
+    from vct_torch.train.engine import Trainer
+
+    cfg = Config().replace(**_resume_overrides(tmp_path, "gru"))
+    names = ["a", "b", "c", "d"]
+    for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+        trainer = Trainer(cfg, names, device=src)
+        state = trainer.init_state()
+        x = torch.rand(2, 4, 32, 32, 3, device=src)
+        trainer._train_step(state, x, torch.tensor([0, 3], device=src), torch.ones(2, device=src))
+        path = save_train_state(str(tmp_path / src), state, cfg, names, 1)
+        other = Trainer(cfg.replace(**{"train.seed": "5"}), names, device=dst)
+        fresh = other.init_state()
+        gen = fresh.generator.get_state()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            restored, epoch, _ = load_train_state(path, fresh)
+        assert epoch == 1 and restored.step == 1 and "keeps its seed" in out.getvalue()
+        assert torch.equal(restored.generator.get_state(), gen)
+        for name, value in trainer.model.state_dict().items():
+            got = other.model.state_dict()[name]
+            assert got.device.type == dst and torch.equal(got.cpu(), value.cpu()), name
+        for moments in restored.optimizer.state.values():
+            assert moments["exp_avg"].device.type == dst
+
+
+def test_load_model_serves_a_ported_reference_lrcn_on_the_card(cuda_device, tmp_path):
+    """A seeded reference-layout state_dict through ``port_reference``
+    (``--scan_impl pallas``) and ``load_model`` on the card serves through
+    K1 and K3, its logits within 1e-4 of the same checkpoint on the CPU."""
+    import chip_smoke
+    from vct_torch.serve.deployment import load_model
+    from vct_torch.tools.port_reference import main as port_main
+
+    T = 4
+    cfg = ModelConfig(num_classes=3, cnn_backbone="resnet18", rnn_input_size=8, hidden_size=6,
+                      rnn_layer=2, scan_impl="pallas")
+    sd = chip_smoke._seeded_state_dict(torch, chip_smoke._reference_lrcn_keys(cfg, T), seed=3)
+    torch.save(sd, tmp_path / "ref.pth")
+    assert port_main(["--state_dict", str(tmp_path / "ref.pth"), "--out", str(tmp_path / "m"),
+                      "--num_classes", "3", "--sequence_length", str(T), "--cnn_backbone",
+                      "resnet18", "--rnn_input_size", "8", "--hidden_size", "6", "--rnn_layer",
+                      "2", "--scan_impl", "pallas", "--img_height", "16",
+                      "--img_width", "16"]) == 0
+    model, names, _ = load_model(str(tmp_path / "m"))
+    model_cpu, _, _ = load_model(str(tmp_path / "m"), device="cpu")
+    assert next(model.parameters()).is_cuda and names == ["class_0", "class_1", "class_2"]
+    videos = [_clips((n, 16, 16, 3), seed=n) for n in (3, 7, 12)]
+    pair_scores.launches = selective_scan.launches = 0
+    clips = sample_decoded_clips(videos, "sad", T)
+    probs = classify_videos(model, clips, batch_size=4)
+    assert (pair_scores.launches, selective_scan.launches) == (2, cfg.rnn_layer)
+    with torch.inference_mode():
+        got = model(clips).cpu()
+        want = model_cpu(sample_decoded_clips(videos, "sad", T, device="cpu"))
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(probs.argmax(-1), want.argmax(-1).numpy())

@@ -141,8 +141,8 @@ class ModelConfig:
     scan_impl: str = "associative"
     # Path to a torchvision state_dict (.pth / .npz) for the backbone — the
     # reference's ``pretrained=True`` (models.py:133) with the download
-    # replaced by a user-supplied file. The port's trainer does not read it
-    # yet (ROADMAP Queue 1 item 2).
+    # replaced by a user-supplied file (vct_torch.models.backbones.port; the
+    # ResNet family so far).
     backbone_weights: str = ""
 
     @property

@@ -14,8 +14,11 @@ Port of the serving half of ``vct/serve/deployment.py``:
   sorted labels and scores with a timestamp as JSON, ``Processed <name>:
   <label>`` lines and the label counts.
 
-Video decoding, checkpoint loading, the CLI, ``post_results`` and mesh
-serving are not ported yet (ROADMAP Queue 1).
+* ``load_model`` — rebuild a model from a vct_torch checkpoint on the card.
+
+Video decoding, the CLI (``main``), ``post_results`` and mesh serving are
+not ported yet (ROADMAP Queue 1), nor the converter of a ``vct`` (Orbax)
+checkpoint (Queue 1 item 4), which ``load_model`` refuses.
 """
 
 from __future__ import annotations
@@ -32,9 +35,12 @@ import torch
 from vct_torch.data.preprocess import device_sample_clips, preprocess_clips
 from vct_torch.data.samplers import duplicate_frames
 from vct_torch.device import resolve_device
+from vct_torch.models import build_model
+from vct_torch.train.checkpoint import load_checkpoint, load_weights
 
 __all__ = [
     "construct_url",
+    "load_model",
     "sample_decoded_clips",
     "classify_videos",
     "classify_and_display",
@@ -50,6 +56,17 @@ def construct_url(video_name: str) -> Optional[str]:
             f"/video/{match.group('video_id')}"
         )
     return None
+
+
+def load_model(model_dir: str, device=None):
+    """Rebuild (model, class_names, cfg) from a vct_torch checkpoint
+    directory, on ``device`` (default: the card), in eval mode. A ``vct``
+    (Orbax) checkpoint raises ``ValueError``; a tensor that does not match
+    the rebuilt model raises (``load_weights``)."""
+    state_dict, cfg, class_names, _ = load_checkpoint(model_dir)
+    model = build_model(cfg.model, cfg.data.sequence_length, device=device)
+    load_weights(model, state_dict, model_dir)
+    return model.eval(), class_names, cfg
 
 
 _DEVICE_METHODS = {

@@ -20,16 +20,21 @@ The training semantics of ``vct`` (and of the reference,
   loss (or the train loss without val data), the feature cache, and the
   metric block of ``vct.core.metrics_contract``.
 
-Per-step scalars stay on the device for a whole epoch; one fetch an epoch.
-The backbone's BatchNorm stays in eval mode under ``train()`` (the ResNet's
-own ``train``). Dropout draws its masks from a ``torch.Generator`` on the
-device seeded from ``train.seed``.
+Per-step scalars stay on the device for a whole epoch; one fetch an epoch
+(``train.log_every`` syncs every N steps to print a step line). The backbone's
+BatchNorm stays in eval mode under ``train()`` (the ResNet's own ``train``).
+Dropout draws its masks from a ``torch.Generator`` on the device seeded from
+``train.seed``, part of the train state.
 
+``train.resume`` saves the full train state every epoch under
+``train.model_path`` and continues from it (``vct_torch.train.checkpoint``);
+``train.init_from`` warm-starts from a checkpoint, ``model.backbone_weights``
+loads torchvision backbone weights (``vct_torch.models.backbones.port``);
+``train.profile_dir`` traces the first epoch that runs and
+``train.history_path`` writes the history JSON (``vct_torch.utils.profiling``).
 Not ported yet, each raising ``NotImplementedError`` that names ROADMAP
-Queue 1 item 2: ``train.resume`` (and so ``save_train_state``),
-``train.profile_dir``, ``train.history_path``, ``train.log_every``,
-``train.init_from``, ``model.backbone_weights``, a device mesh (anything but
-one device), and ``fit_stream`` (``vct/train/stream.py``).
+Queue 1: a device mesh (anything but one device) and ``fit_stream``
+(``vct/train/stream.py``).
 """
 
 from __future__ import annotations
@@ -55,7 +60,14 @@ from vct_torch.data.loaders import as_loader
 from vct_torch.data.preprocess import preprocess_clips
 from vct_torch.device import resolve_device
 from vct_torch.models import build_model
+from vct_torch.models.backbones.port import load_state_dict_file, port_backbone_into_model
 from vct_torch.models.layers import Dropout
+from vct_torch.train.checkpoint import (
+    load_checkpoint,
+    load_train_state,
+    load_weights,
+    save_train_state,
+)
 from vct_torch.train.metrics import (
     macro_auc,
     multiclass_confusion,
@@ -63,6 +75,7 @@ from vct_torch.train.metrics import (
     multilabel_counts,
     multilabel_metrics,
 )
+from vct_torch.utils.profiling import StepTimer, device_trace, write_history
 
 __all__ = ["TrainState", "Trainer", "compute_class_weights", "count_parameters"]
 
@@ -72,10 +85,8 @@ FROZEN_KEY = "cnn_backbone"
 _UNUSED_SUFFIXES = (".mixer.D",)
 
 
-def _not_yet(what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to vct_torch yet (ROADMAP Queue 1 item 2, {slice_})"
-    )
+def _not_yet(what: str, where: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to vct_torch yet (ROADMAP Queue 1 {where})")
 
 
 def compute_class_weights(y: np.ndarray, num_classes: int, classif_mode: str):
@@ -125,29 +136,21 @@ def count_parameters(model: nn.Module, finetune: bool = False,
 
 @dataclass
 class TrainState:
-    """The model, its optimizer and the step count."""
+    """The model, its optimizer, the step count and the dropout generator
+    (``vct``'s state carries ``rng``)."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    generator: Optional[torch.Generator] = None
 
 
 class Trainer:
     def __init__(self, cfg: Config, class_names: List[str], mesh=None,
                  class_weights: Optional[np.ndarray] = None, device=None):
         t, m = cfg.train, cfg.model
-        for flag, what, slice_ in (
-            (t.resume, "train.resume (save_train_state)", "slice (c)"),
-            (t.profile_dir, "train.profile_dir", "slice (c)"),
-            (t.history_path, "train.history_path", "slice (c)"),
-            (t.log_every, "train.log_every", "slice (c)"),
-            (t.init_from, "train.init_from", "slice (c)"),
-            (m.backbone_weights, "model.backbone_weights", "slice (c)"),
-            (mesh is not None or cfg.mesh.model_axis != 1 or cfg.mesh.data_axis not in (-1, 1),
-             "a device mesh", "with Queue 1 item 8"),
-        ):
-            if flag:
-                raise _not_yet(what, slice_)
+        if mesh is not None or cfg.mesh.model_axis != 1 or cfg.mesh.data_axis not in (-1, 1):
+            raise _not_yet("a device mesh", "item 8")
         self.cfg = cfg
         self.class_names = class_names
         self.num_classes = m.num_classes
@@ -187,12 +190,23 @@ class Trainer:
         """A fresh optimizer over the trained parameters and a dropout
         generator on the device seeded from ``train.seed``, wired into every
         Dropout of the model. The weights are the model's, from
-        ``train.seed``."""
-        gen = torch.Generator(device=self.device).manual_seed(self.cfg.train.seed)
+        ``train.seed``, then ``model.backbone_weights`` (a torchvision
+        state_dict ported into the backbone), then ``train.init_from`` (a
+        vct_torch checkpoint whose every tensor must match the model's
+        shape, else ``ValueError``)."""
+        m, t = self.cfg.model, self.cfg.train
+        if m.backbone_weights:
+            # The reference's pretrained=True (models.py:133) from a user's file.
+            port_backbone_into_model(self.model, m.cnn_backbone,
+                                     load_state_dict_file(m.backbone_weights))
+        if t.init_from:
+            state_dict, _, _, _ = load_checkpoint(t.init_from)
+            load_weights(self.model, state_dict, "init_from")
+        gen = torch.Generator(device=self.device).manual_seed(t.seed)
         for mod in self.model.modules():
             if isinstance(mod, Dropout):
                 mod.generator = gen
-        return TrainState(model=self.model, optimizer=self._make_optimizer())
+        return TrainState(model=self.model, optimizer=self._make_optimizer(), generator=gen)
 
     # ------------------------------------------------------------------
     def _loss_fn(self, logits, labels, mask):
@@ -286,7 +300,13 @@ class Trainer:
         in-memory array (with labels ``y``) or a loader; ``val`` optional
         held-out data, an (x, y) tuple or a loader, whose loss drives the
         patience early stop and the plateau scheduler (else the train loss
-        does)."""
+        does).
+
+        With ``train.resume`` the train state is saved after every epoch
+        under ``train.model_path`` and a run restarts where the saved one
+        ended: the shuffle stream, the stop and plateau counters and the
+        epoch history continue, so a resumed run equals an uninterrupted
+        one; a run that had stopped trains no further."""
         t = self.cfg.train
         loader = as_loader(x, y, t.batch_size)
         val_loader = None
@@ -300,7 +320,27 @@ class Trainer:
         stop = False
         best_loss, bad_epochs = float("inf"), 0
         plateau_best, plateau_bad = float("inf"), 0
-        if self._feature_mode:
+        start_epoch = 0
+        if t.resume:
+            state, start_epoch, saved = load_train_state(t.model_path, state)
+            if start_epoch:
+                print(f"Resuming training from epoch {start_epoch}")
+                # Every loader consumes one permutation an epoch.
+                for _ in range(start_epoch):
+                    rng.permutation(loader.num_examples)
+                best_loss = saved.get("best_loss", best_loss)
+                bad_epochs = saved.get("bad_epochs", bad_epochs)
+                plateau_best = saved.get("plateau_best", plateau_best)
+                plateau_bad = saved.get("plateau_bad", plateau_bad)
+                run.epoch_losses = list(saved.get("epoch_losses", []))
+                run.epoch_accs = list(saved.get("epoch_accs", []))
+                run.val_losses = list(saved.get("val_losses", []))
+                if saved.get("stopped"):
+                    print("Checkpointed run had early-stopped; not training further.")
+                    start_epoch = t.epochs
+        if self._feature_mode and start_epoch < t.epochs:
+            # After the restore: a resumed run's features come from the
+            # checkpoint's backbone, not from the fresh init's.
             t0 = time.time()
             fx, fy = self._extract_features(state, loader)
             loader = as_loader(fx, fy, t.batch_size)
@@ -310,20 +350,32 @@ class Trainer:
             if log:
                 print(f"feature_cache: extracted {fx.shape} backbone features "
                       f"in {time.time() - t0:.1f}s")
+        timer = StepTimer()
         start = time.time()
-        for epoch in range(t.epochs):
+        for epoch in range(start_epoch, t.epochs):
             step_stats, step_bs = [], []
-            for xb, yb, mask in loader.epoch(rng):
-                loss, c, n = self._train_step(state, *self._put_batch(xb, yb, mask))
-                step_stats.append(torch.stack([loss.to(torch.float32), c, n]))
-                step_bs.append(float(np.sum(mask)))
-            seen = int(sum(step_bs))
-            if step_stats:
-                losses, cs, ns = torch.stack(step_stats).cpu().numpy().T  # one fetch an epoch
-                epoch_loss = float(np.dot(losses, np.asarray(step_bs))) / max(seen, 1)
-                epoch_acc = float(np.sum(cs)) / max(float(np.sum(ns)), 1.0)
-            else:
-                epoch_loss, epoch_acc = 0.0, 0.0
+            # The first epoch this run trains is traced (a resumed run starts past 0).
+            with device_trace(t.profile_dir if epoch == start_epoch else None, self.device):
+                for step_i, (xb, yb, mask) in enumerate(loader.epoch(rng)):
+                    timer.start()
+                    loss, c, n = self._train_step(state, *self._put_batch(xb, yb, mask))
+                    timer.step()
+                    step_stats.append(torch.stack([loss.to(torch.float32), c, n]))
+                    step_bs.append(float(np.sum(mask)))
+                    if t.log_every and (step_i + 1) % t.log_every == 0:
+                        loss_f = loss.item()  # the sync that closes the timer's span
+                        timer.sync()
+                        print(f"step {state.step}: loss {loss_f:.4f} "
+                              f"({timer.last_ms:.1f} ms/step)")
+                # One fetch an epoch, inside the trace: it waits for the epoch's work.
+                seen = int(sum(step_bs))
+                if step_stats:
+                    losses, cs, ns = torch.stack(step_stats).cpu().numpy().T
+                    timer.sync()
+                    epoch_loss = float(np.dot(losses, np.asarray(step_bs))) / max(seen, 1)
+                    epoch_acc = float(np.sum(cs)) / max(float(np.sum(ns)), 1.0)
+                else:
+                    epoch_loss, epoch_acc = 0.0, 0.0
             run.epoch_losses.append(epoch_loss)
             run.epoch_accs.append(epoch_acc)
             if log:
@@ -353,6 +405,13 @@ class Trainer:
                         plateau_bad = 0
                         if log:
                             print(f"Reducing learning rate to {new_lr:.3e}")
+            if t.resume:
+                save_train_state(t.model_path, state, self.cfg, self.class_names, epoch + 1, extra={
+                    "best_loss": best_loss, "bad_epochs": bad_epochs,
+                    "plateau_best": plateau_best, "plateau_bad": plateau_bad,
+                    "stopped": bool(stop), "epoch_losses": run.epoch_losses,
+                    "epoch_accs": run.epoch_accs, "val_losses": run.val_losses,
+                })
             if stop:
                 break
         run.training_duration = time.time() - start
@@ -364,6 +423,15 @@ class Trainer:
         if log:
             print_training_duration(run.training_duration)
             print_param_counts(run.trainable_params, run.non_trainable_params)
+        if t.history_path:
+            write_history(t.history_path, {
+                "train_loss": run.epoch_losses,
+                "train_acc": run.epoch_accs,
+                "val_loss": run.val_losses,
+                "training_duration": run.training_duration,
+                "step_times": timer.summary(),
+                "config": self.cfg.to_dict(),
+            })
         return state, run
 
     @staticmethod
@@ -386,7 +454,7 @@ class Trainer:
         return float(np.mean(torch.stack(losses).cpu().numpy()))
 
     def fit_stream(self, state: TrainState, loader, log: bool = True):
-        raise _not_yet("fit_stream (vct/train/stream.py)", "with Queue 1 item 3's loaders")
+        raise _not_yet("fit_stream (vct/train/stream.py)", "item 3, with its loaders")
 
     # ------------------------------------------------------------------
     @torch.no_grad()
