@@ -47,7 +47,8 @@ line):
    its plan (``plan``: states a lane, lanes and warps a channel, state
    tiles, block threads, chunk steps): the deployed shapes (B=32 and a served B=4), VideoMamba's width
    (D=2048, N=16, L=256), the sweep's top N=64 at D=32, N = 1, 8, 12, 24,
-   33, 64, 100 at the deployed widths, and L=1;
+   33, 64, 100 at the deployed widths, L=1, and the VideoMamba model's
+   (B = 32 and 4, L=16, D=2048, N=16);
 7. K2 ``lstm_stack`` / ``gru_stack`` and K5 ``lstm_scan`` / ``gru_scan``
    against their plain versions on the card, TF32 off, atol = rtol = 1e-5,
    each launched just after NaN was left in every SM's shared memory (a
@@ -65,7 +66,8 @@ line):
    through the plain versions, each gradient within 1e-5 of its largest
    magnitude, each launch after the NaN fill: K3 at the deployed step and
    L = 130 (three chunks) both directions, VideoMamba's width and N = 1, 24,
-   64, 100, 300 (two state tiles), each shape printed with its plan
+   64, 100, 300 (two state tiles), the VideoMamba model's (B = 32 and 4,
+   L=16, D=2048, N=16), each shape printed with its plan
    (``bwd_plan``); the LSTM and GRU
    stacks, each shape printed with its backward design (checked:
    "registers" for H <= 64, "columns" above), at the bench stack, a
@@ -138,8 +140,34 @@ line):
     its frames the CPU's (pixels within 1e-6: the card's /255 multiplies by
     the reciprocal) and its logits within 1e-4 (atol = rtol, TF32 off),
     labels equal;
-13. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
-    launches, error, time, plain time, bound and, for K2/K5, the design,
+13. the model zoo — VideoMamba at ``vct``'s full width (resnet50 in bf16,
+    4 blocks, d_model 512, d_inner 2048, n_state 16, dt_rank 16, temporal
+    mean, T=16, 80x80, scan_impl "pallas") serves three requests of four
+    decoded videos with SAD selection (launches read around exactly that
+    run: K1 once a video longer than T, K3 4 a forward, nothing else), its
+    bench-shaped step (B=32, raw L=32, ragged) is timed as
+    ``videomamba_clips_per_s`` and held as phase 8 holds the deployed one
+    (kernel vs plain path, card vs CPU); ``python -m vct_torch.train``'s
+    ``main`` trains it (40 synthetic clips, 2 epochs, K3 forward and
+    backward launches counted), 5 Adam steps are held kernel vs plain as
+    in phase 11 and its train step timed (``videomamba_train_step_ms``);
+    the deployed LRCN on each other backbone (mobilenet_v2, the sweep
+    winner's, then efficientnet_b0, densenet121, vgg16, alexnet,
+    inception_v3) serves one request (K1, K3 counted) and its bench-shaped
+    step is timed and held the same way (``lrcn_<backbone>_clips_per_s``);
+    ``lrcn2`` and ``td_cnn_lstm`` serve one request each (K1 only: their
+    recurrences are the plain loops, as in ``vct``); a seeded
+    torchvision-layout mobilenet_v2 state_dict (key list written out here)
+    goes through ``model.backbone_weights``, each tensor checked by an
+    independent name map, and a seeded reference VideoMamba state_dict
+    through ``vct_torch.tools.port_reference --model_family videomamba`` on
+    the card and on the CPU, ``load_model`` on both, one request served on
+    the card (launches counted), frames the CPU's and logits within 1e-4;
+    one summary line gives the clips/s and the train step;
+14. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
+    launches, error, time, plain time, bound (K3 forward and backward also at
+    the VideoMamba step, B=32 T=16 D=2048 N=16, ``"config": "videomamba"``,
+    launches from phase 13) and, for K2/K5, the design,
     ``us_per_step`` (device time over T*L) and cuDNN's ``nn.LSTM`` /
     ``nn.GRU`` time (``library_ms`` by events; ``library_device_ms`` replayed
     from a CUDA graph or, where capture fails (cuDNN's LSTM backward at
@@ -174,7 +202,10 @@ line):
     profiler union as ``device_busy_ms`` and ``library_busy_ms`` (one method
     for both where cuDNN's capture fails); K3's its plan, ``us_per_step``
     and ``kernel_launches`` (device launches a call, ``torch.profiler``);
-    ``python3 chip_smoke.py --bwd-timing ROOT`` prints only the backward
+    ``python3 chip_smoke.py --step-timing ROOT`` prints only the existing
+    configurations' serving and train steps (``step_timings``) of the
+    package at ROOT, an older checkout's too, for a comparison of parent and
+    change in one call; ``python3 chip_smoke.py --bwd-timing ROOT`` prints only the backward
     entry points' times (``bwd_timings``: K3's at the deployed step and
     VideoMamba's shape with its launches a call, K2/K5's) for the package at
     ROOT, an older checkout's too.
@@ -632,9 +663,11 @@ def _scan_inputs(torch, gen, B, L, D, N):
 # K3 shapes (B, L, D, N): the bench-shaped batch, a served request
 # (batch_size 4), VideoMamba's width, the sweep's top (rnn_input_size 16:
 # N = hidden = 64), every state size the LRCN's hidden_size can give it
-# (N = 1 to 100, at the deployed widths of a request), and L = 1.
+# (N = 1 to 100, at the deployed widths of a request), L = 1, and the
+# VideoMamba model's own (B=32 bench and train steps, B=4 requests; T=16).
 SCAN_SHAPES = ([(32, T, 16, 32), (4, T, 16, 32), (2, 256, 2048, 16), (32, T, 32, 64)]
-               + [(4, T, 16, n) for n in (1, 8, 12, 24, 33, 64, 100)] + [(4, 1, 16, 32)])
+               + [(4, T, 16, n) for n in (1, 8, 12, 24, 33, 64, 100)] + [(4, 1, 16, 32)]
+               + [(32, 16, 2048, 16), (4, 16, 2048, 16)])
 # K3 shapes timed under other plans: the first four, and N=100 (four warps a channel).
 SCAN_PLAN_SHAPES = SCAN_SHAPES[:4] + [(4, T, 16, 100)]
 
@@ -732,14 +765,19 @@ BWD_RTOL = 1e-5
 BWD_LONG_T = 130
 # K3 backward shapes (B, L, D, N): the deployed step, VideoMamba's width,
 # N = 1, 24, 64, 100 at the deployed widths of a request, L = 130 (three
-# chunks: a first pass keeps h at the later chunks' starts) and N = 300 (two
-# state tiles). The deployed step and L = 130 run in both directions.
+# chunks: a first pass keeps h at the later chunks' starts), N = 300 (two
+# state tiles) and the VideoMamba model's train step and a B=4 batch (T=16).
+# The deployed step and L = 130 run in both directions.
 BWD_SCAN_SHAPES = ([(32, T, 16, 32), (2, 256, 2048, 16)] + [(4, T, 16, n) for n in (1, 24, 64, 100)]
-                   + [(4, BWD_LONG_T, 16, 32), (4, T, 16, 300)])
+                   + [(4, BWD_LONG_T, 16, 32), (4, T, 16, 300), (32, 16, 2048, 16),
+                      (4, 16, 2048, 16)])
 BWD_SCAN_BOTH_WAYS = (BWD_SCAN_SHAPES[0], (4, BWD_LONG_T, 16, 32))
 # VideoMamba's shape (n_state 16, d_inner 2048 at L = 256), timed beside the
 # deployed step.
 VIDEOMAMBA_SCAN = (2, 256, 2048, 16)
+# K3 in the VideoMamba model's bench and train steps: B=32, T=16, d_inner
+# 2048, n_state 16.
+VIDEOMAMBA_STEP = (32, 16, 2048, 16)
 BWD_RNN_SHAPES = [(32, 40, 56, 4), (4, 40, 56, 4), (32, 60, 32, 3), (3, 7, 5, 3), (2, 20, 17, 3),
                   (2, 16, 1, 2), (2, 16, 64, 4), (2, BWD_LONG_T, 17, 3), (2, 16, 65, 2),
                   (2, 16, 256, 2)]
@@ -961,7 +999,8 @@ def _selection_gaps(torch, preprocess, raw, lens, seq_len, method, rows):
 def _bench_and_hold(torch, model, cfg32, seq_len, gpu, label, seed, method="sad"):
     """Time a bench-shaped step (B=32, raw L=2T, ragged lengths, ``method``
     selection, forward) as clips/s; hold the kernel path against the plain
-    path, and an f32 copy of the model on the card against the CPU."""
+    path, and an f32 copy of the model on the card against the CPU. Returns
+    the timings it prints."""
     import vct_torch.data.preprocess as preprocess
     from vct_torch.models import build_model
     from vct_torch.ops.pair_scores import pair_scores_ref
@@ -983,12 +1022,13 @@ def _bench_and_hold(torch, model, cfg32, seq_len, gpu, label, seed, method="sad"
         forward_ms = _events_ms(torch, lambda: model(x), iters=10)
         backbone_ms = _events_ms(torch, lambda: model(x, features_only=True), iters=10)
         head_ms = _events_ms(torch, lambda: model(feats, from_features=True), iters=10)
-    print(json.dumps({
+    timing = {
         "config": label, "serving_clips_per_s": 32 * 1e3 / step_ms, "batch": 32,
         "sampling": method,
         "raw_len": 2 * seq_len, "T": seq_len, "ms_per_batch": step_ms, "sampling_ms": sample_ms,
         "forward_ms": forward_ms, "backbone_ms": backbone_ms, "head_ms": head_ms, "gpu": gpu,
-    }))
+    }
+    print(json.dumps(timing))
 
     # --- kernel path vs the same path with the plain versions ------------
     scorer = {"sad": ("pair_scores", pair_scores_ref),
@@ -1021,6 +1061,65 @@ def _bench_and_hold(torch, model, cfg32, seq_len, gpu, label, seed, method="sad"
         on_cpu = build_model(cfg32, seq_len, device="cpu", seed=0)(x_cpu)
     torch.testing.assert_close(on_card, on_cpu, atol=1e-3, rtol=1e-3)
     print(f"{label}: f32 card vs CPU logits max abs err {(on_card - on_cpu).abs().max().item()}")
+    return timing
+
+
+def _serve_counters():
+    from vct_torch.ops import lstm as rnn_ops
+    from vct_torch.ops.pair_scores import pair_scores
+    from vct_torch.ops.preprocess import normalize_frames
+    from vct_torch.ops.selective_scan import selective_scan
+    from vct_torch.ops.ssim import ssim_pair_scores
+
+    return {"pair_scores": pair_scores, "ssim_pair_scores": ssim_pair_scores,
+            "normalize_frames": normalize_frames, "selective_scan": selective_scan,
+            **{n: getattr(rnn_ops, n) for n in RNN_KERNELS}}
+
+
+# Decoded lengths of the served videos, four a request: short ones are
+# cycled up to T, the others go through a length bucket and on-device
+# selection.
+SERVED_LENGTHS = [40, 75, 121, 200, 60, 100, 150, 55, 120, 61, 180, 90]
+
+
+def _serve_counted(torch, label, model, class_names, seq_len, samplings, seed, mamba_blocks):
+    """One request of four decoded videos for each entry of ``samplings``
+    (its selection method), through ``sample_decoded_clips`` and
+    ``classify_and_display`` (its JSON kept off the log), the kernels'
+    launches read around exactly that run and held to the scorer's (K1 for
+    SAD and flow, K4 for SSIM) once a video longer than ``seq_len``, K3
+    ``mamba_blocks`` times a request, every other kernel never."""
+    import contextlib
+    import io
+
+    from vct_torch.serve.deployment import (_DEVICE_METHODS, classify_and_display,
+                                            sample_decoded_clips)
+
+    lengths = SERVED_LENGTHS[:4 * len(samplings)]
+    videos = _synthetic_videos(lengths, seed=seed)
+    names = [f"@user{i}_video_{1000 + i}.mp4" for i in range(len(videos))]
+    counters = _serve_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    results = []
+    with contextlib.redirect_stdout(io.StringIO()):
+        for r, sampling in enumerate(samplings):
+            batch = slice(4 * r, 4 * r + 4)
+            clips = sample_decoded_clips(videos[batch], sampling, seq_len)
+            results += classify_and_display(model, clips, names[batch], class_names,
+                                            batch_size=4)
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    scorer = "ssim_pair_scores" if _DEVICE_METHODS[samplings[0]] == "ssim" else "pair_scores"
+    want[scorer] = sum(n > seq_len for n in lengths)
+    want["selective_scan"] = len(samplings) * mamba_blocks
+    print(f"{label} path ({', '.join(samplings)}): labels {[r['labels'][0] for r in results]}; "
+          f"launches {_nonzero(launches)} (expected {_nonzero(want)})")
+    if launches != want:
+        raise AssertionError(f"{label}: kernel launches {launches} != expected {want}")
+    _check_served(results, names)
+    return launches
 
 
 def _serve_deployed(torch, gpu, model, samplings, label):
@@ -1028,37 +1127,13 @@ def _serve_deployed(torch, gpu, model, samplings, label):
     request r with ``samplings[r]``; the kernels' launch counts are read
     around exactly that run. Then the bench-shaped step is timed and held."""
     from vct_torch.core.config import ModelConfig
-    from vct_torch.ops.pair_scores import pair_scores
-    from vct_torch.ops.preprocess import normalize_frames
-    from vct_torch.ops.selective_scan import selective_scan
-    from vct_torch.ops.ssim import ssim_pair_scores
-    from vct_torch.serve.deployment import (_DEVICE_METHODS, classify_and_display,
-                                            sample_decoded_clips)
+    from vct_torch.serve.deployment import _DEVICE_METHODS
 
-    counters = {"pair_scores": pair_scores, "ssim_pair_scores": ssim_pair_scores,
-                "selective_scan": selective_scan, "normalize_frames": normalize_frames}
-    method = _DEVICE_METHODS[samplings[0]]
     class_names = [f"class_{i}" for i in range(ModelConfig(**DEPLOYED).num_classes)]
-    lengths = [40, 75, 121, 200, 60, 100, 150, 55, 120, 61, 180, 90]
-    videos = _synthetic_videos(lengths, seed=0)
-    names = [f"@user{i}_video_{1000 + i}.mp4" for i in range(len(videos))]
-    for fn in counters.values():
-        fn.launches = 0
-    results = []
-    for r, sampling in enumerate(samplings):
-        batch = slice(4 * r, 4 * r + 4)
-        clips = sample_decoded_clips(videos[batch], sampling, T)
-        results += classify_and_display(model, clips, names[batch], class_names, batch_size=4)
-    torch.cuda.synchronize()
-    launches = {n: fn.launches for n, fn in counters.items()}
-    want = dict.fromkeys(counters, 0)
-    want["ssim_pair_scores" if method == "ssim" else "pair_scores"] = sum(n > T for n in lengths)
-    want["selective_scan"] = len(samplings) * DEPLOYED["rnn_layer"]
-    print(f"{label} path ({', '.join(samplings)}) launches {launches} (expected {want})")
-    if launches != want:
-        raise AssertionError(f"{label}: kernel launches {launches} != expected {want}")
-    _check_served(results, names)
-    _bench_and_hold(torch, model, ModelConfig(**DEPLOYED), T, gpu, label, seed=1, method=method)
+    launches = _serve_counted(torch, label, model, class_names, T, samplings, seed=0,
+                              mamba_blocks=DEPLOYED["rnn_layer"])
+    _bench_and_hold(torch, model, ModelConfig(**DEPLOYED), T, gpu, label, seed=1,
+                    method=_DEVICE_METHODS[samplings[0]])
     return launches
 
 
@@ -1134,16 +1209,22 @@ def _train_counters():
 
 def _expected_train_launches(model: dict, forwards: int, backwards: int) -> dict:
     """Kernel launches of ``forwards`` forward passes and ``backwards``
-    backward passes of the head: the Mamba head one K3 forward and one K3
-    backward a block; the unidirectional LSTM/GRU stack one K2 forward and
+    backward passes of the head: a Mamba head (the LRCN's, or VideoMamba's)
+    one K3 forward and one K3 backward a block; the unidirectional LSTM/GRU stack one K2 forward and
     one backward launch a layer; a bidirectional one K5 forward and backward
     a layer and direction."""
+    from vct_torch.core.config import ModelConfig
+
     want = dict.fromkeys(_train_counters(), 0)
-    layers, rnn = model["rnn_layer"], model["rnn_type"]
+    cfg = ModelConfig(**model)
+    if cfg.model_family == "videomamba":  # its Mamba blocks
+        layers, rnn = cfg.vm_n_layer, "mamba"
+    else:
+        layers, rnn = cfg.rnn_layer, cfg.rnn_type
     if rnn == "mamba":
         want["selective_scan"] = forwards * layers
         want["selective_scan_bwd"] = backwards * layers
-    elif model.get("bidirectional"):  # K5 a layer and direction, both ways
+    elif cfg.bidirectional:  # K5 a layer and direction, both ways
         want[f"{rnn}_scan"] = forwards * 2 * layers
         want[f"{rnn}_scan_bwd"] = backwards * 2 * layers
     else:
@@ -1655,100 +1736,113 @@ def _resume_path(torch, gpu, label, model: dict, seq_len: int, tmp: Path) -> dic
     return out
 
 
+def _check_backbone_weights(torch, tmp: Path, model: dict, keys: dict, seed: int,
+                            to_port) -> int:
+    """A seeded torchvision state_dict of the layout ``keys`` through
+    ``model.backbone_weights`` into the LRCN of ``model`` (``ModelConfig``
+    fields), each tensor checked against the name map ``to_port`` written
+    here, the features finite. Returns the number of tensors checked."""
+    from vct_torch.core.config import Config
+    from vct_torch.train.engine import Trainer
+
+    tv = _seeded_state_dict(torch, keys, seed=seed)
+    path = tmp / f"{model['cnn_backbone']}_torchvision.pth"
+    torch.save(tv, path)
+    cfg = Config().replace(**{"data.sequence_length": str(T), "model.compute_dtype": "bfloat16",
+                              "model.backbone_weights": str(path),
+                              **{f"model.{k}": str(v) for k, v in model.items()}})
+    trainer = Trainer(cfg, [f"class_{i}" for i in range(cfg.model.num_classes)])
+    trainer.init_state()
+    ported = trainer.model.state_dict()
+    checked = 0
+    for key, value in tv.items():
+        if key.startswith(("fc.", "classifier.")) or key.endswith("num_batches_tracked"):
+            continue
+        if not torch.equal(ported[f"cnn_backbone.{to_port(key)}"].cpu(), value):
+            raise AssertionError(f"backbone_weights: {key} was not ported as written")
+        checked += 1
+    with torch.no_grad():
+        clip = torch.rand(2, T, H, W, 3, device=trainer.device)
+        feats = trainer.model(clip, features_only=True)
+    if feats.shape[:2] != (2, T) or not bool(torch.isfinite(feats).all()):
+        raise AssertionError(f"backbone_weights: features {tuple(feats.shape)} not finite")
+    return checked
+
+
+def _serve_ported(torch, label, argv, tmp: Path, seq_len, mamba_blocks, seed) -> dict:
+    """``python -m vct_torch.tools.port_reference`` with ``argv`` on the card
+    and on the CPU, ``load_model`` on both, and one 4-video SAD request
+    served on the card (launches counted), its frames the CPU's (pixels
+    within 1e-6), its logits within 1e-4 (atol = rtol, TF32 off) and its
+    labels equal."""
+    from vct_torch.device import resolve_device
+    from vct_torch.serve.deployment import load_model, sample_decoded_clips
+    from vct_torch.tools.port_reference import main as port_main
+
+    names = argv[argv.index("--classes") + 1].split(",")
+    t0 = time.perf_counter()
+    if port_main(argv + ["--out", str(tmp / "card")]) != 0:
+        raise AssertionError(f"{label}: port_reference failed on the card")
+    port_s = time.perf_counter() - t0
+    if port_main(argv + ["--out", str(tmp / "cpu"), "--device", "cpu"]) != 0:
+        raise AssertionError(f"{label}: port_reference failed on the CPU")
+    model, class_names, _ = load_model(str(tmp / "card"))
+    model_cpu, _, _ = load_model(str(tmp / "cpu"), device="cpu")
+    if class_names != names or next(model.parameters()).device.type != resolve_device().type:
+        raise AssertionError(f"{label}: {class_names} on {next(model.parameters()).device}")
+    launches = _serve_counted(torch, label, model, class_names, seq_len, ("sad",), seed,
+                              mamba_blocks)
+    # The same frames on both (the SAD scores are exact, ties break to the
+    # lower index); the card's /255 multiplies by the reciprocal, so a pixel
+    # may differ by its last bit, while another frame would differ by 1/255.
+    videos = _synthetic_videos(SERVED_LENGTHS[:4], seed=seed)  # the served request's
+    clips = sample_decoded_clips(videos, "sad", seq_len)
+    clips_cpu = sample_decoded_clips(videos, "sad", seq_len, device="cpu")
+    frame_err = (clips.cpu() - clips_cpu).abs().max().item()
+    if frame_err > 1e-6:
+        raise AssertionError(f"{label}: card and CPU selected different frames (largest pixel "
+                             f"difference {frame_err})")
+    with torch.inference_mode():
+        logits = model(clips).cpu()
+        logits_cpu = model_cpu(clips_cpu)
+    torch.testing.assert_close(logits, logits_cpu, atol=1e-4, rtol=1e-4)
+    labels = [class_names[i] for i in logits.argmax(dim=-1).tolist()]
+    labels_cpu = [class_names[i] for i in logits_cpu.argmax(dim=-1).tolist()]
+    if labels != labels_cpu:
+        raise AssertionError(f"{label}: labels {labels} != the CPU's {labels_cpu}")
+    del model, model_cpu
+    torch.cuda.empty_cache()
+    return {"port_reference_s": port_s, "launches": _nonzero(launches),
+            "frames_max_abs_err": frame_err,
+            "logits_max_abs_err": (logits - logits_cpu).abs().max().item(), "labels": labels}
+
+
 def _weights_path(torch, gpu, tmp: Path) -> dict:
     """A seeded torchvision ResNet state_dict through ``model.backbone_weights``
     into the deployed model, each tensor checked against the key map written
     here; a seeded reference-LRCN state_dict of the deployed config through
     ``python -m vct_torch.tools.port_reference`` on the card and on the CPU,
     ``load_model`` on both, and one 4-video SAD request served on the card
-    (launches of K1 and K3 counted), its logits within 1e-4 of the CPU's
-    and its labels equal."""
-    from vct_torch.core.config import Config, ModelConfig
-    from vct_torch.ops.pair_scores import pair_scores
-    from vct_torch.ops.selective_scan import selective_scan
-    from vct_torch.serve.deployment import classify_and_display, load_model, sample_decoded_clips
-    from vct_torch.tools.port_reference import main as port_main
-    from vct_torch.train.engine import Trainer
-
-    from vct_torch.device import resolve_device
+    (``_serve_ported``)."""
+    from vct_torch.core.config import ModelConfig
 
     model_cfg = ModelConfig(**DEPLOYED)
-    tv = _seeded_state_dict(torch, _torchvision_resnet_keys(model_cfg.cnn_backbone), seed=11)
-    torch.save(tv, tmp / "backbone.pth")
-    overrides = {"data.sequence_length": str(T), "model.compute_dtype": "bfloat16",
-                 "model.backbone_weights": str(tmp / "backbone.pth"),
-                 **{f"model.{k}": str(v) for k, v in DEPLOYED.items()}}
-    cfg = Config().replace(**overrides)
-    trainer = Trainer(cfg, [f"class_{i}" for i in range(cfg.model.num_classes)])
-    trainer.init_state()
-    ported = trainer.model.state_dict()
-    for key, value in tv.items():
-        if key.startswith("fc.") or key.endswith("num_batches_tracked"):
-            continue
-        if not torch.equal(ported[f"cnn_backbone.{_torchvision_to_port(key)}"].cpu(), value):
-            raise AssertionError(f"backbone_weights: {key} was not ported as written")
-    with torch.no_grad():
-        clip = torch.rand(2, T, H, W, 3, device=trainer.device)
-        feats = trainer.model(clip, features_only=True)
-    if feats.shape[:2] != (2, T) or not bool(torch.isfinite(feats).all()):
-        raise AssertionError(f"backbone_weights: features {tuple(feats.shape)} not finite")
-    del trainer, ported
-
-    ref = _seeded_state_dict(torch, _reference_lrcn_keys(model_cfg, T), seed=12)
-    torch.save(ref, tmp / "reference_lrcn.pth")
-    names = [f"label_{i}" for i in range(model_cfg.num_classes)]
+    checked = _check_backbone_weights(torch, tmp, DEPLOYED,
+                                      _torchvision_resnet_keys(model_cfg.cnn_backbone), 11,
+                                      _torchvision_to_port)
+    torch.save(_seeded_state_dict(torch, _reference_lrcn_keys(model_cfg, T), seed=12),
+               tmp / "reference_lrcn.pth")
     argv = ["--state_dict", str(tmp / "reference_lrcn.pth"), "--num_classes",
             str(model_cfg.num_classes), "--sequence_length", str(T), "--cnn_backbone",
             model_cfg.cnn_backbone, "--rnn_type", model_cfg.rnn_type, "--rnn_input_size",
             str(model_cfg.rnn_input_size), "--rnn_layer", str(model_cfg.rnn_layer),
-            "--scan_impl", model_cfg.scan_impl, "--classes", ",".join(names)]
-    t0 = time.perf_counter()
-    if port_main(argv + ["--out", str(tmp / "ported")]) != 0:
-        raise AssertionError("port_reference failed on the card")
-    port_s = time.perf_counter() - t0
-    if port_main(argv + ["--out", str(tmp / "ported_cpu"), "--device", "cpu"]) != 0:
-        raise AssertionError("port_reference failed on the CPU")
-    model, class_names, _ = load_model(str(tmp / "ported"))
-    model_cpu, _, _ = load_model(str(tmp / "ported_cpu"), device="cpu")
-    if class_names != names or next(model.parameters()).device.type != resolve_device().type:
-        raise AssertionError(f"load_model: {class_names} on {next(model.parameters()).device}")
-
-    lengths = [50, 90, 130, 200]
-    videos = _synthetic_videos(lengths, seed=13)
-    video_names = [f"@user{i}_video_{3000 + i}.mp4" for i in range(len(videos))]
-    for fn in (pair_scores, selective_scan):
-        fn.launches = 0
-    clips = sample_decoded_clips(videos, "sad", T)
-    results = classify_and_display(model, clips, video_names, class_names, batch_size=4)
-    torch.cuda.synchronize()
-    launches = {"pair_scores": pair_scores.launches, "selective_scan": selective_scan.launches}
-    want = {"pair_scores": sum(n > T for n in lengths), "selective_scan": model_cfg.rnn_layer}
-    if launches != want:
-        raise AssertionError(f"load_model request: launches {launches} != expected {want}")
-    _check_served(results, video_names)
-    # The same frames on both (the SAD scores are exact, ties break to the
-    # lower index); the card's /255 multiplies by the reciprocal, so a pixel
-    # may differ by its last bit, while another frame would differ by 1/255.
-    clips_cpu = sample_decoded_clips(videos, "sad", T, device="cpu")
-    frame_err = (clips.cpu() - clips_cpu).abs().max().item()
-    if frame_err > 1e-6:
-        raise AssertionError(f"load_model request: card and CPU selected different frames "
-                             f"(largest pixel difference {frame_err})")
-    with torch.inference_mode():
-        logits = model(clips).cpu()
-        logits_cpu = model_cpu(clips_cpu)
-    torch.testing.assert_close(logits, logits_cpu, atol=1e-4, rtol=1e-4)
-    labels = [r["labels"][0] for r in results]
-    labels_cpu = [class_names[i] for i in logits_cpu.argmax(dim=-1).tolist()]
-    if labels != labels_cpu:
-        raise AssertionError(f"load_model request: labels {labels} != the CPU's {labels_cpu}")
-    out = {"config": "deployed_mamba", "backbone_weights": "ported as written",
-           "port_reference_s": port_s, "launches": launches, "frames_max_abs_err": frame_err,
-           "logits_max_abs_err": (logits - logits_cpu).abs().max().item(), "labels": labels,
-           "gpu": gpu}
+            "--scan_impl", model_cfg.scan_impl, "--classes",
+            ",".join(f"label_{i}" for i in range(model_cfg.num_classes))]
+    (tmp / "lrcn").mkdir()
+    out = {"config": "deployed_mamba", "backbone_weights": f"{checked} tensors ported as written",
+           **_serve_ported(torch, "load_model request", argv, tmp / "lrcn", T,
+                           model_cfg.rnn_layer, seed=13), "gpu": gpu}
     print(json.dumps(out))
-    del model
-    torch.cuda.empty_cache()
     return out
 
 
@@ -1766,6 +1860,179 @@ def _resume_and_weights(torch, gpu) -> None:
             _resume_path(torch, gpu, label, model, seq_len, Path(tmp) / label)
         _weights_path(torch, gpu, Path(tmp))
     print(f"resume and weights phase: {time.perf_counter() - t0:.1f} s")
+
+
+# The zoo phase: VideoMamba at vct's full width (resnet50 in bf16, 4 blocks,
+# d_model 512, d_inner 2048, n_state 16, dt_rank 16, temporal mean) at T=16;
+# the deployed LRCN (3 Mamba blocks, rnn_input 8, T=60) on each other
+# backbone, the sweep winner's mobilenet_v2 first; the scratch CNN families;
+# the importers of a torchvision mobilenet_v2 and a reference VideoMamba.
+T_VM = 16
+VIDEOMAMBA = dict(model_family="videomamba", cnn_backbone="resnet50", scan_impl="pallas")
+ZOO_BACKBONES = ("mobilenet_v2", "efficientnet_b0", "densenet121", "vgg16", "alexnet",
+                 "inception_v3")
+SCRATCH_FAMILIES = ("lrcn2", "td_cnn_lstm")
+
+
+# The torchvision mobilenet_v2 layout, written out here independently of the
+# porter: (expand_ratio, channels, blocks, first stride) a stage, channels
+# rounded to multiples of 8, conv weights OIHW (depthwise (C, 1, 3, 3)).
+TORCHVISION_MOBILENET_V2 = [(1, 16, 1), (6, 24, 2), (6, 32, 3), (6, 64, 4), (6, 96, 3),
+                            (6, 160, 3), (6, 320, 1)]
+
+
+def _torchvision_mobilenet_v2_keys() -> dict:
+    """torchvision's mobilenet_v2 state_dict layout: key -> shape, the
+    classifier included."""
+    keys = {}
+
+    def bn(prefix, c):
+        keys.update({f"{prefix}.weight": (c,), f"{prefix}.bias": (c,),
+                     f"{prefix}.running_mean": (c,), f"{prefix}.running_var": (c,),
+                     f"{prefix}.num_batches_tracked": ()})
+
+    keys["features.0.0.weight"] = (32, 3, 3, 3)
+    bn("features.0.1", 32)
+    cin, f = 32, 1
+    for t, c, n in TORCHVISION_MOBILENET_V2:
+        for _ in range(n):
+            p, hidden, j = f"features.{f}.conv", cin * t, 0
+            if t != 1:
+                keys[f"{p}.0.0.weight"] = (hidden, cin, 1, 1)
+                bn(f"{p}.0.1", hidden)
+                j = 1
+            keys[f"{p}.{j}.0.weight"] = (hidden, 1, 3, 3)
+            bn(f"{p}.{j}.1", hidden)
+            keys[f"{p}.{j + 1}.weight"] = (c, hidden, 1, 1)
+            bn(f"{p}.{j + 2}", c)
+            cin, f = c, f + 1
+    keys["features.18.0.weight"] = (1280, 320, 1, 1)
+    bn("features.18.1", 1280)
+    keys.update({"classifier.1.weight": (1000, 1280), "classifier.1.bias": (1000,)})
+    return keys
+
+
+def _mobilenet_v2_to_port(name: str) -> str:
+    """A torchvision mobilenet_v2 key's name in the port's backbone: stem and
+    head pairs; in block i-1 of ``features.i.conv``, a (conv, BN) pair j is
+    ``conv{j}``, and the bare projection conv and the BN after it (indices
+    n-1 and n, n = 2 in ``features.1``, the block without an expansion, and
+    3 elsewhere) the last ``conv{n-1}``'s."""
+    m = re.fullmatch(r"features\.(0|18)\.([01])\.(.+)", name)
+    if m:
+        return f"{'stem' if m[1] == '0' else 'head'}.{'conv' if m[2] == '0' else 'bn'}.{m[3]}"
+    m = re.fullmatch(r"features\.(\d+)\.conv\.(\d+)\.([01])\.(.+)", name)
+    if m:
+        return f"block{int(m[1]) - 1}.conv{m[2]}.{'conv' if m[3] == '0' else 'bn'}.{m[4]}"
+    block, j, leaf = re.fullmatch(r"features\.(\d+)\.conv\.(\d+)\.(.+)", name).groups()
+    n = 2 if block == "1" else 3
+    return f"block{int(block) - 1}.conv{n - 1}.{'conv' if int(j) == n - 1 else 'bn'}.{leaf}"
+
+
+def _reference_videomamba_keys(model_cfg) -> dict:
+    """The reference VideoMamba's state_dict layout (``lrcn/videomamba.py:
+    332-386``) for ``model_cfg``: key -> shape; multiclass, temporal mean."""
+    keys = {f"cnn_backbone.{k}": s for k, s in _torchvision_resnet_keys(model_cfg.cnn_backbone).items()
+            if not k.startswith("fc.")}
+    f = keys["cnn_backbone.layer4.0.downsample.0.weight"][0]
+    d, di = model_cfg.vm_d_model, model_cfg.vm_d_inner
+    n, r = model_cfg.vm_n_state, model_cfg.vm_dt_rank
+    keys.update({"adapt.weight": (d, f), "adapt.bias": (d,), "norm_f.weight": (d,),
+                 "classifier.weight": (model_cfg.num_classes, d),
+                 "classifier.bias": (model_cfg.num_classes,)})
+    for i in range(model_cfg.vm_n_layer):
+        m = f"layers.{i}.mixer"
+        keys.update({f"layers.{i}.norm.weight": (d,), f"{m}.A_log": (di, n), f"{m}.D": (di,),
+                     f"{m}.in_proj.weight": (2 * di, d), f"{m}.in_proj.bias": (2 * di,),
+                     f"{m}.conv1d.weight": (di, 1, 3), f"{m}.conv1d.bias": (di,),
+                     f"{m}.x_proj.weight": (r + 2 * n, di), f"{m}.dt_proj.weight": (di, r),
+                     f"{m}.dt_proj.bias": (di,), f"{m}.out_proj.weight": (d, di),
+                     f"{m}.out_proj.bias": (d,)})
+    return keys
+
+
+def _zoo_weights(torch, gpu, tmp: Path) -> dict:
+    """A seeded torchvision mobilenet_v2 state_dict through
+    ``model.backbone_weights`` into the deployed LRCN on mobilenet_v2, each
+    tensor checked against the name map written here; a seeded reference
+    VideoMamba state_dict through ``python -m vct_torch.tools.port_reference
+    --model_family videomamba`` on the card and on the CPU, ``load_model``
+    on both, and one 4-video SAD request served on the card
+    (``_serve_ported``)."""
+    from vct_torch.core.config import ModelConfig
+
+    checked = _check_backbone_weights(torch, tmp, {**DEPLOYED, "cnn_backbone": "mobilenet_v2"},
+                                      _torchvision_mobilenet_v2_keys(), 21,
+                                      _mobilenet_v2_to_port)
+    model_cfg = ModelConfig(**VIDEOMAMBA)
+    torch.save(_seeded_state_dict(torch, _reference_videomamba_keys(model_cfg), seed=22),
+               tmp / "reference_videomamba.pth")
+    argv = ["--state_dict", str(tmp / "reference_videomamba.pth"), "--model_family",
+            "videomamba", "--num_classes", str(model_cfg.num_classes), "--sequence_length",
+            str(T_VM), "--cnn_backbone", model_cfg.cnn_backbone, "--scan_impl",
+            model_cfg.scan_impl, "--classes",
+            ",".join(f"label_{i}" for i in range(model_cfg.num_classes))]
+    argv += [a for k in ("vm_d_model", "vm_d_inner", "vm_n_state", "vm_dt_rank", "vm_n_layer")
+             for a in (f"--{k}", str(getattr(model_cfg, k)))]
+    (tmp / "videomamba").mkdir()
+    out = {"config": "videomamba",
+           "backbone_weights": f"mobilenet_v2, {checked} tensors ported as written",
+           **_serve_ported(torch, "ported reference VideoMamba", argv, tmp / "videomamba", T_VM,
+                           model_cfg.vm_n_layer, seed=23), "gpu": gpu}
+    print(json.dumps(out))
+    return out
+
+
+def _zoo_path(torch, gen, gpu) -> dict:
+    """VideoMamba at full width served (three 4-video SAD requests, launches
+    counted), its bench-shaped step timed and held (kernel vs plain, card vs
+    CPU), trained through ``main`` (launches counted), 5 Adam steps held
+    kernel vs plain and its train step timed; the deployed LRCN on each
+    other backbone served once and its bench-shaped step timed and held; the
+    scratch CNN families served once each; the zoo's importers. Returns the
+    VideoMamba path's launches: its served requests' and its train run's."""
+    import tempfile
+
+    from vct_torch.core.config import ModelConfig
+    from vct_torch.models import build_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    summary = {}
+    vm_cfg = ModelConfig(**VIDEOMAMBA)
+    classes = [f"class_{i}" for i in range(vm_cfg.num_classes)]
+    model = build_model(ModelConfig(**VIDEOMAMBA, compute_dtype="bfloat16"), T_VM, seed=0)
+    served = _serve_counted(torch, "videomamba", model, classes, T_VM, ("sad",) * 3, seed=31,
+                            mamba_blocks=vm_cfg.vm_n_layer)
+    summary["videomamba_clips_per_s"] = _bench_and_hold(
+        torch, model, vm_cfg, T_VM, gpu, "videomamba", seed=32)["serving_clips_per_s"]
+    del model
+    torch.cuda.empty_cache()
+    trained = _train_cli(torch, "videomamba", VIDEOMAMBA, T_VM)
+    summary["videomamba_train_step_ms"] = _train_hold_and_time(
+        torch, gen, gpu, "videomamba", VIDEOMAMBA, T_VM)["train_step_ms"]
+    for i, backbone in enumerate(ZOO_BACKBONES):
+        cfg32 = ModelConfig(**{**DEPLOYED, "cnn_backbone": backbone})
+        model = build_model(ModelConfig(**{**DEPLOYED, "cnn_backbone": backbone,
+                                           "compute_dtype": "bfloat16"}), T, seed=0)
+        label = f"lrcn_{backbone}"
+        _serve_counted(torch, label, model, classes, T, ("sad",), seed=40 + i,
+                       mamba_blocks=cfg32.rnn_layer)
+        summary[f"{label}_clips_per_s"] = _bench_and_hold(
+            torch, model, cfg32, T, gpu, label, seed=50 + i)["serving_clips_per_s"]
+        del model
+        torch.cuda.empty_cache()
+    for i, family in enumerate(SCRATCH_FAMILIES):
+        model = build_model(ModelConfig(model_family=family), T, seed=0, frame_size=(H, W))
+        _serve_counted(torch, family, model, classes, T, ("sad",), seed=60 + i, mamba_blocks=0)
+        del model
+    with tempfile.TemporaryDirectory() as tmp:
+        _zoo_weights(torch, gpu, Path(tmp))
+    summary["gpu"] = gpu
+    print(json.dumps(summary))
+    print(f"zoo phase: {time.perf_counter() - t0:.1f} s")
+    return {"served": served, "trained": trained}
 
 
 def _bwd_timing(torch, gen, name, dims) -> dict:
@@ -1843,9 +2110,10 @@ def _bwd_timing(torch, gen, name, dims) -> dict:
             "library_busy_ms": _busy_ms(torch, lib_fn, 20)}
 
 
-def _bwd_rows(torch, gen, launches, errs) -> list[dict]:
+def _bwd_rows(torch, gen, launches, errs, vm_launches) -> list[dict]:
     """The kernels line's backward rows at the training path's shapes: K3's
-    at the deployed Mamba step, K2's and K5's at the bench stack."""
+    at the deployed Mamba step and at VideoMamba's train step (its launches
+    from the zoo phase's train run), K2's and K5's at the bench stack."""
     shapes = {"selective_scan_bwd": (TRAIN_BATCH, T, 16, 32)}
     shapes.update({n: (TRAIN_BATCH, T_UCF50, 56, 4) for n in BWD_KERNELS if n != "selective_scan_bwd"})
     rows = []
@@ -1854,6 +2122,10 @@ def _bwd_rows(torch, gen, launches, errs) -> list[dict]:
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[name], "max_abs_err": errs[name][1],
                      "max_err_over_max_grad": errs[name][0], **t})
+        if name == "selective_scan_bwd":
+            rows.append({**rows[-1], "config": "videomamba",
+                         "launches": vm_launches["selective_scan_bwd"],
+                         **_bwd_timing(torch, gen, name, VIDEOMAMBA_STEP)})
     return rows
 
 
@@ -1967,7 +2239,7 @@ def _rnn_timing(torch, gen, ops, cell, kind, B, T_, Hd, L, in_size=512):
         }
 
 
-def _kernel_timings(torch, gen, launches, errs, gpu):
+def _kernel_timings(torch, gen, launches, errs, gpu, vm_launches):
     from vct_torch.ops import lstm as rnn_ops
     from vct_torch.ops.preprocess import normalize_frames, normalize_frames_ref
     from vct_torch.ops.selective_scan import _launch as _scan_launch
@@ -2056,6 +2328,12 @@ def _kernel_timings(torch, gen, launches, errs, gpu):
          "bound_ms": t6["bound_ms"], "bound_by": t6["bound_by"], "library_ms": None,
          "device_ms": t6["device_ms"], "shape": t6["shape"]},
     ]
+    t3vm = k3(*VIDEOMAMBA_STEP)
+    kernels.append({**kernels[1], "config": "videomamba",
+                    "launches": vm_launches["selective_scan"],
+                    **{k: t3vm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
+                                            "shape", "plan", "us_per_step", "expf_bound_ms",
+                                            "launch_ms")}})
     for name in RNN_KERNELS:
         cell, kind = name.split("_")
         t = _rnn_timing(torch, gen, rnn_ops, cell, kind, 32, T_UCF50, 56, 4)
@@ -2150,10 +2428,63 @@ def bwd_timings(torch, root: Path) -> dict:
     return {"bwd_timings": rows, "root": str(root), "gpu": _gpu_line()}
 
 
+def step_timings(torch, root: Path) -> dict:
+    """The end-to-end steps of the existing configurations for the
+    ``vct_torch`` package at ``root`` (this checkout's or an older one's):
+    the bench-shaped serving steps of ``_bench_and_hold`` (deployed Mamba
+    with SAD and SSIM selection, UCF50 LSTM; B=32, raw L=2T, ragged, the
+    same seeded inputs) and the train steps of ``_train_hold_and_time`` (B=32
+    f32 clips on the card), each three times by events, sorted. Uses only
+    ``build_model``, ``device_sample_clips`` and ``Trainer``."""
+    sys.path.insert(0, str(root))
+    import vct_torch.data.preprocess as preprocess
+    from vct_torch.core.config import Config, ModelConfig
+    from vct_torch.models import build_model
+    from vct_torch.ops import _build
+    from vct_torch.train.engine import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load_kernels()
+    out = {}
+    ucf50 = {**UCF50, "rnn_type": "lstm"}
+    for label, model, seq_len, method in (("deployed_mamba", DEPLOYED, T, "sad"),
+                                          ("deployed_mamba_ssim", DEPLOYED, T, "ssim"),
+                                          ("ucf50_lstm", ucf50, T_UCF50, "sad")):
+        net = build_model(ModelConfig(**model, compute_dtype="bfloat16"), seq_len, seed=0)
+        rng = np.random.RandomState(1)
+        raw = torch.from_numpy(rng.randint(0, 256, (32, 2 * seq_len, H, W, 3),
+                                           dtype=np.uint8)).cuda()
+        lens = torch.from_numpy(rng.randint(seq_len + 1, 2 * seq_len + 1, size=32)).cuda()
+        with torch.inference_mode():
+            step = lambda: net(preprocess.device_sample_clips(  # noqa: E731
+                raw, seq_len, method=method, lengths=lens))
+            out[f"{label}_serve_ms"] = sorted(_events_ms(torch, step, 20) for _ in range(3))
+        del net
+    for label, (model, seq_len) in TRAIN_CONFIGS.items():
+        cfg = Config().replace(**{"data.sequence_length": str(seq_len),
+                                  "train.batch_size": str(TRAIN_BATCH),
+                                  "model.compute_dtype": "bfloat16", "model.dropout": "0.0",
+                                  **{f"model.{k}": str(v) for k, v in model.items()}})
+        trainer = Trainer(cfg, [f"class_{i}" for i in range(cfg.model.num_classes)])
+        state = trainer.init_state()
+        gen = torch.Generator().manual_seed(0)
+        clips = torch.rand(TRAIN_BATCH, seq_len, H, W, 3, generator=gen).cuda()
+        labels = torch.randint(0, cfg.model.num_classes, (TRAIN_BATCH,), generator=gen).cuda()
+        mask = torch.ones(TRAIN_BATCH, device=clips.device)
+        step = lambda: trainer._train_step(state, clips, labels, mask)  # noqa: E731
+        out[f"{label}_train_ms"] = sorted(_events_ms(torch, step, 10, warmup=2)
+                                          for _ in range(3))
+        del trainer, state
+    torch.cuda.empty_cache()
+    return {"step_timings": out, "root": str(root), "gpu": _gpu_line()}
+
+
 def main(argv: list[str]) -> int:
-    """With no arguments, every phase; with ``--k1-timing [ROOT]`` or
-    ``--bwd-timing [ROOT]``, only ``k1_timings`` or ``bwd_timings`` of the
-    package at ROOT (default: this checkout)."""
+    """With no arguments, every phase; with ``--k1-timing [ROOT]``,
+    ``--bwd-timing [ROOT]`` or ``--step-timing [ROOT]``, only
+    ``k1_timings``, ``bwd_timings`` or ``step_timings`` of the package at
+    ROOT (default: this checkout)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2161,9 +2492,10 @@ def main(argv: list[str]) -> int:
               file=sys.stderr)
         return 1
     here = Path(__file__).resolve().parent
-    if argv[:1] in (["--k1-timing"], ["--bwd-timing"]):
-        timings = k1_timings if argv[0] == "--k1-timing" else bwd_timings
-        print(json.dumps(timings(torch, Path(argv[1]).resolve() if argv[1:] else here)))
+    modes = {"--k1-timing": k1_timings, "--bwd-timing": bwd_timings,
+             "--step-timing": step_timings}
+    if argv[:1] and argv[0] in modes:
+        print(json.dumps(modes[argv[0]](torch, Path(argv[1]).resolve() if argv[1:] else here)))
         return 0
     sys.path.insert(0, str(here))
     from vct_torch.ops import _build
@@ -2212,8 +2544,9 @@ def main(argv: list[str]) -> int:
     train_launches = _train_path(torch, gen, gpu)
     print(f"training path launches over both configurations {train_launches}")
     _resume_and_weights(torch, gpu)
-    kernels = _kernel_timings(torch, gen, launches, errs, gpu)
-    kernels += _bwd_rows(torch, gen, train_launches, bwd_errs)
+    zoo = _zoo_path(torch, gen, gpu)
+    kernels = _kernel_timings(torch, gen, launches, errs, gpu, zoo["served"])
+    kernels += _bwd_rows(torch, gen, train_launches, bwd_errs, zoo["trained"])
     print(json.dumps({"kernels": kernels, "gpu": gpu}))
     print(_gpu_line())  # name, power limit: exactly as nvidia-smi prints them
     print(json.dumps({"ok": True, "device": {

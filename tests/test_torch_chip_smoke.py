@@ -1,6 +1,7 @@
 """CPU tests of ``chip_smoke.py``'s helpers that need no card: the summary
-of nvcc's ``-Xptxas -v`` log it prints after the build, and the bound it
-reports beside each kernel."""
+of nvcc's ``-Xptxas -v`` log it prints after the build, the bound it
+reports beside each kernel, and the state_dict layouts its zoo phase writes
+out."""
 
 from __future__ import annotations
 
@@ -234,3 +235,36 @@ def test_trace_reader_counts_each_kernel_group(tmp_path):
                 "lstm_stack_bwd": 1, "gru_scan_bwd": 1, "normalize_frames": 5}
     assert chip_smoke._counted_groups(launches) == chip_smoke._trace_kernel_counts(path)
     assert chip_smoke._nonzero({"a": 0, "b": 2}) == {"b": 2}
+
+
+def test_mobilenet_v2_key_list_and_name_map_cover_the_port():
+    """Phase 13's torchvision mobilenet_v2 layout, written out in the script,
+    maps by its name map onto every tensor of the port's backbone, shape for
+    shape, and is torchvision's (tests/test_weight_port.py's list)."""
+    from test_weight_port import _mobilenet_v2_keys
+
+    from vct_torch.models.backbones import build_backbone
+
+    keys = chip_smoke._torchvision_mobilenet_v2_keys()
+    assert keys == _mobilenet_v2_keys()
+    target = build_backbone("mobilenet_v2")[0].state_dict()
+    mapped = {chip_smoke._mobilenet_v2_to_port(k): s for k, s in keys.items()
+              if not k.startswith("classifier.")}
+    assert mapped.keys() == target.keys()
+    assert all(tuple(target[k].shape) == tuple(s) for k, s in mapped.items())
+
+
+def test_reference_videomamba_key_list_is_what_the_importer_consumes():
+    """Phase 13's reference VideoMamba layout, at a small width, seeded as
+    the script seeds it, goes through ``port_reference_videomamba`` whole."""
+    import torch
+
+    from vct_torch.core.config import ModelConfig
+    from vct_torch.models import build_model
+    from vct_torch.models.lrcn_port import port_reference_videomamba
+
+    cfg = ModelConfig(model_family="videomamba", cnn_backbone="resnet18", vm_d_model=12,
+                      vm_d_inner=24, vm_n_state=4, vm_dt_rank=4, vm_n_layer=2)
+    sd = chip_smoke._seeded_state_dict(torch, chip_smoke._reference_videomamba_keys(cfg), seed=1)
+    model = port_reference_videomamba(build_model(cfg, 4, device="cpu"), sd, cfg)
+    assert torch.equal(model.layer_1.mixer.A_log, sd["layers.1.mixer.A_log"])

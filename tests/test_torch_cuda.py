@@ -15,7 +15,9 @@ normalize exact; the selective scan and the LSTM/GRU recurrences
 atol = rtol = 1e-5 (f32, summation order and fused multiply-adds; each
 LSTM/GRU shape also asserts which kernel design it takes, and the scan's
 cases run after NaN was left in shared memory); logits atol = rtol = 1e-4
-with TF32 off.
+with TF32 off; the zoo's models built on the card against the CPU, logits
+atol = rtol = 1e-3 (f32, TF32 off: whole backbones whose convolutions sum
+in other orders, as chip_smoke.py holds the card against the CPU).
 """
 
 import math
@@ -376,11 +378,13 @@ def test_selective_scan_kernel_takes_every_state_size(cuda_device, N, B, reverse
 
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("dims", [(2, 256, 2048, 16), (3, 1, 16, 32), (1, 300, 6, 20),
-                                  (1, 40, 3, 300)],
-                         ids=["videomamba", "L1", "L300_chunks", "N300_tiles"])
+                                  (1, 40, 3, 300), (32, 16, 2048, 16), (4, 16, 2048, 16)],
+                         ids=["videomamba", "L1", "L300_chunks", "N300_tiles",
+                              "videomamba_model_B32", "videomamba_model_B4"])
 def test_selective_scan_kernel_edge_shapes(cuda_device, dims, reverse):
     """VideoMamba's width (double-buffered time chunks), one step, L past
-    one chunk at a small width, and N past one state tile."""
+    one chunk at a small width, N past one state tile, and the VideoMamba
+    model's own shapes (T=16: the bench and train steps, a request)."""
     _check_scan_after_nan_fill(_scan_args(*dims, cuda_device), reverse)
 
 
@@ -602,6 +606,36 @@ def test_mamba_hidden_24_serves_through_the_kernel(cuda_device):
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
 
 
+_ZOO_CASES = [("videomamba", {}), ("lrcn2", {}), ("td_cnn_lstm", {})] + [
+    ("lrcn", {"cnn_backbone": b}) for b in ("mobilenet_v2", "efficientnet_b0", "densenet121",
+                                            "vgg16", "alexnet", "inception_v3")]
+
+
+@pytest.mark.parametrize("family,model", _ZOO_CASES,
+                         ids=[m.get("cnn_backbone", f) for f, m in _ZOO_CASES])
+def test_new_families_build_and_forward_on_the_card(cuda_device, family, model):
+    """Each family and backbone of the zoo built on the card by default
+    (VideoMamba at vct's full width; the LRCNs the deployed Mamba head),
+    forward on two 80x80 clips: K3 a Mamba block a forward, no launch on the
+    scratch CNNs' plain recurrences, and logits within atol = rtol = 1e-3 of
+    the same seeded model on the CPU (f32, TF32 off: the card's and the
+    CPU's convolutions sum in other orders)."""
+    T = 8
+    cfg = ModelConfig(model_family=family, scan_impl="pallas", **model)
+    net = build_model(cfg, T, seed=3, frame_size=(80, 80))
+    assert next(net.parameters()).device.type == "cuda"
+    x = torch.rand(2, T, 80, 80, 3, generator=torch.Generator().manual_seed(0))
+    selective_scan.launches = 0
+    with torch.inference_mode():
+        got = net(x.to(cuda_device))
+        torch.cuda.synchronize()
+        want = build_model(cfg, T, device="cpu", seed=3, frame_size=(80, 80))(x)
+    blocks = {"videomamba": cfg.vm_n_layer, "lrcn": cfg.rnn_layer}.get(family, 0)
+    assert selective_scan.launches == blocks
+    assert got.shape == (2, cfg.num_classes) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)
+
+
 @pytest.mark.parametrize("rnn_type,bidirectional", [("lstm", False), ("gru", True)])
 def test_recurrent_serving_path_goes_through_the_kernels(cuda_device, rnn_type, bidirectional):
     T, layers = 4, 2
@@ -673,9 +707,11 @@ def _stale(fn):
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("dims", [(4, 60, 16, 32), (3, 70, 20, 1), (2, 33, 5, 24), (2, 40, 16, 33),
                                   (2, 20, 6, 100), (2, 130, 16, 32), (2, 256, 64, 16),
-                                  (2, 40, 6, 300), (1, 60, 16, 32), (3, 60, 20, 32)],
+                                  (2, 40, 6, 300), (1, 60, 16, 32), (3, 60, 20, 32),
+                                  (32, 16, 2048, 16), (4, 16, 2048, 16)],
                          ids=["deployed", "N1", "N24", "N33", "N100", "L130", "videomamba_L_N",
-                              "N300", "B1", "D20"])
+                              "N300", "B1", "D20", "videomamba_model_B32",
+                              "videomamba_model_B4"])
 def test_selective_scan_backward_kernel_matches_plain(cuda_device, dims, reverse):
     args = _scan_args(*dims, cuda_device)
     gy = torch.randn(dims[:3], device=cuda_device)

@@ -233,9 +233,9 @@ def test_model_config_defaults_match_vct():
 
 def test_unknown_backbone_and_family_raise_keyerror():
     with pytest.raises(KeyError, match="resnet50"):
-        build_backbone("mobilenet_v2")
+        build_backbone("vgg19")  # a name neither package registers
     with pytest.raises(KeyError, match="lrcn"):
-        build_model(config.ModelConfig(model_family="videomamba"), 4, device="cpu")
+        build_model(config.ModelConfig(model_family="s2vt"), 4, device="cpu")
 
 
 def test_seeded_weights_are_reproducible():

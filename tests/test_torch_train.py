@@ -311,10 +311,14 @@ def test_lrcn_in_train_mode_keeps_the_backbone_at_running_statistics():
     ("adamw", "mamba", {"train.learning_rate": "1e-3", "train.weight_decay": "0.05",
                         "train.grad_clip": "0.05"}),
     ("sgd", "gru", {"train.learning_rate": "0.05", "train.weighted_loss": "true"}),
+    ("adam", "mamba", {"train.learning_rate": "1e-3", "train.grad_clip": "1.0",
+                       "model.model_family": "videomamba", "model.vm_n_layer": "2",
+                       "model.vm_d_model": "32", "model.vm_d_inner": "64"}),
 ])
 def test_five_step_trajectories_match_vct(opt, rnn_type, extra):
     """Five steps of vct's compiled train step against the port's, in
-    feature mode: each step's loss within rtol 1e-4, and every parameter
+    feature mode (the LRCN's heads, and VideoMamba's at a small width with
+    the reference's clip of 1.0): each step's loss within rtol 1e-4, and every parameter
     after the five within atol = rtol = 1e-5, except, under adam and
     adamw, the elements whose gradient at some step lay below 1e-5 of its
     tensor's largest (the f32 noise floor of the gradients, where Adam's

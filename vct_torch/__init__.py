@@ -8,11 +8,14 @@ CUDA kernels live in ``vct_torch/csrc`` and are built on first CUDA use
 
 It covers the serving path: on-device SAD/flow frame selection (kernel
 ``pair_scores``) and SSIM frame selection (kernel ``ssim_pair_scores``),
-the bilinear resize, the LRCN classifier with a ResNet backbone and a Mamba head
-(kernel ``selective_scan``) or an LSTM/GRU head (kernels ``lstm_stack`` /
-``gru_stack`` and ``lstm_scan`` / ``gru_scan``), and the batched softmax
-serving entry points in ``vct_torch.serve.deployment``; and the frame
-normalize kernel ``normalize_frames``, which no path calls, as in ``vct``.
+the bilinear resize, every model family of ``vct`` (the LRCN on any of the
+eleven backbones with a Mamba head, kernel ``selective_scan``, or an
+LSTM/GRU head, kernels ``lstm_stack`` / ``gru_stack`` and ``lstm_scan`` /
+``gru_scan``; VideoMamba on ``selective_scan``; the scratch CNNs ``lrcn2``
+and ``td_cnn_lstm``), and the batched softmax serving entry points in
+``vct_torch.serve.deployment``; training (``vct_torch.train``) with the
+backward kernels; and the frame normalize kernel ``normalize_frames``,
+which no path calls, as in ``vct``.
 """
 
 from vct_torch.device import resolve_device

@@ -1,6 +1,7 @@
 """Load a ``vct`` (Flax) variables tree into the port's modules.
 
-The inverse of ``vct/models/backbones/port.py``, extended to the whole LRCN.
+The inverse of ``vct/models/backbones/port.py``, extended to every model
+family (LRCN, VideoMamba, LRCN2, TimeDistributedCNNLSTM).
 The port's submodules carry the Flax module names (``cnn_backbone.layer1_0
 .conv1``, ``adapt.adapt1``, ``mamba_0.mixer.in_proj``, ``head.fc`` ...), so
 each torch tensor's Flax leaf follows from its module path and type:
@@ -9,10 +10,12 @@ each torch tensor's Flax leaf follows from its module path and type:
 Flax                                   torch
 =====================================  =====================================
 conv ``kernel`` (kH, kW, I, O)         Conv2d ``weight`` (O, I, kH, kW)
+(depthwise: (kH, kW, 1, C))            (depthwise: (C, 1, kH, kW))
 Dense ``kernel`` (in, out)             Linear ``weight`` (out, in)
 LayerNorm ``scale``                    LayerNorm ``weight``
-``.../bnN/BatchNorm_0/{scale,bias}``   BatchNorm2d ``weight``, ``bias``
+BatchNorm ``{scale,bias}``             BatchNorm2d ``weight``, ``bias``
 ``batch_stats .../{mean,var}``         ``running_mean``, ``running_var``
+(ResNet: ``.../bnN/BatchNorm_0/...``)  (the module's ``flax_child``)
 Mamba ``conv_kernel`` (k, D)           depthwise Conv1d ``weight`` (D, 1, k)
 Mamba ``conv_bias``                    depthwise Conv1d ``bias``
 ``A_log``, ``D``, RMSNorm ``weight``   the same names, as they are
@@ -80,11 +83,16 @@ def _sources(mod: nn.Module, mname: str):
         yield "weight", f"{p}/scale", None
         yield "bias", f"{p}/bias", None
     elif isinstance(mod, nn.BatchNorm2d):
+        # The module says where Flax keeps its variables: ResNet's ``_BN``
+        # wraps its BatchNorm (``flax_child = "BatchNorm_0"``); every other
+        # family names the BatchNorm itself.
+        child = getattr(mod, "flax_child", "")
+        p = f"{p}/{child}" if child else p
         stats = p.replace("params", "batch_stats", 1)
-        yield "weight", f"{p}/BatchNorm_0/scale", None
-        yield "bias", f"{p}/BatchNorm_0/bias", None
-        yield "running_mean", f"{stats}/BatchNorm_0/mean", None
-        yield "running_var", f"{stats}/BatchNorm_0/var", None
+        yield "weight", f"{p}/scale", None
+        yield "bias", f"{p}/bias", None
+        yield "running_mean", f"{stats}/mean", None
+        yield "running_var", f"{stats}/var", None
     else:
         for name, _ in mod.named_parameters(recurse=False):
             yield name, f"{p}/{name}", None

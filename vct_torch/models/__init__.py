@@ -12,12 +12,16 @@ from vct_torch.device import resolve_device
 from vct_torch.models.layers import RMSNorm
 from vct_torch.models.lrcn import LRCN, build_lrcn
 from vct_torch.models.recurrent import GRU, LSTM
+from vct_torch.models.scratch_cnn import LRCN2, TimeDistributedCNNLSTM
 from vct_torch.models.ssm import ParallelMamba
+from vct_torch.models.videomamba import VideoMamba, build_videomamba
 
-__all__ = ["LRCN", "MODEL_FAMILIES", "build_lrcn", "build_model", "init_weights"]
+__all__ = ["LRCN", "LRCN2", "MODEL_FAMILIES", "TimeDistributedCNNLSTM", "VideoMamba",
+           "build_lrcn", "build_model", "build_videomamba", "init_weights"]
 
 MODEL_FAMILIES = Registry("model_family")
 MODEL_FAMILIES.register("lrcn", build_lrcn)
+MODEL_FAMILIES.register("videomamba", build_videomamba)
 
 
 def _normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
@@ -70,14 +74,31 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     return model
 
 
-def build_model(model_cfg, sequence_length: int, device=None, seed: int = 0) -> nn.Module:
+def _build(model_cfg, sequence_length: int, frame_size) -> nn.Module:
+    """The model family dispatch of ``vct/models/__init__.py``."""
+    if model_cfg.model_family in MODEL_FAMILIES:
+        return MODEL_FAMILIES.get(model_cfg.model_family)(model_cfg, sequence_length)
+    if model_cfg.model_family == "lrcn2":
+        if frame_size is None:
+            raise ValueError("model_family lrcn2 needs frame_size: its GRU's input width "
+                             "is 64 * (H // 4) * (W // 4)")
+        return LRCN2(num_classes=model_cfg.num_classes, sequence_length=sequence_length,
+                     hidden_size=model_cfg.resolved_hidden_size, frame_size=tuple(frame_size))
+    if model_cfg.model_family == "td_cnn_lstm":
+        return TimeDistributedCNNLSTM(num_classes=model_cfg.num_classes)
+    raise KeyError(f"Unknown model family: {model_cfg.model_family}; available: "
+                   f"{MODEL_FAMILIES.names() + ['lrcn2', 'td_cnn_lstm']}")
+
+
+def build_model(model_cfg, sequence_length: int, device=None, seed: int = 0,
+                frame_size=None) -> nn.Module:
     """Build the configured model family on ``device`` (default: the card)
-    with weights from ``seed``, in eval mode. Load trained weights with
+    with weights from ``seed``, in eval mode. ``frame_size`` (H, W) is
+    needed by ``lrcn2`` alone. Load trained weights with
     ``vct_torch.bridge.load_vct_variables``."""
     dev = resolve_device(device)
-    build = MODEL_FAMILIES.get(model_cfg.model_family)  # KeyError lists the ported ones
     with torch.device("meta"):
-        model = build(model_cfg, sequence_length)
+        model = _build(model_cfg, sequence_length, frame_size)
     model.to_empty(device=dev)
     init_weights(model, seed)
     return model.to(memory_format=torch.channels_last).eval()

@@ -7,24 +7,38 @@ downloads: a user supplies a torchvision ``state_dict`` (``.pth`` of tensors,
 or ``.npz``) and these routines map it onto the port's modules, whose names
 are the Flax ones:
 
-  * ``layer1.0.conv1`` -> ``layer1_0.conv1``; ``layer2.0.downsample.0`` /
-    ``.1`` -> ``layer2_0.downsample_conv`` / ``downsample_bn``;
-  * conv weights are OIHW on both sides, so nothing is transposed;
-  * BatchNorm ``weight``, ``bias``, ``running_mean``, ``running_var`` keep
-    their names (the backbones always run BN on its running statistics);
-    ``num_batches_tracked`` is read and not used;
-  * the classifier ``fc.*`` is dropped (the reference replaces it with
-    ``nn.Identity``, ``models.py:134-136``).
+  * ResNet: ``layer1.0.conv1`` -> ``layer1_0.conv1``; ``layer2.0.downsample.0``
+    / ``.1`` -> ``layer2_0.downsample_conv`` / ``downsample_bn``;
+  * MobileNetV2: ``features.{b+1}.conv.{j}.0`` / ``.1`` ->
+    ``block{b}.conv{j}.conv`` / ``.bn``, the projection a bare
+    ``features.{b+1}.conv.{n-1}`` + ``.{n}`` pair; ``features.0`` / ``18``
+    -> ``stem`` / ``head``;
+  * DenseNet-121: ``features.denseblock{i+1}.denselayer{j+1}`` ->
+    ``block{i}_layer{j}``, ``features.transition{i+1}`` -> ``transition{i}``;
+  * VGG-16, AlexNet: the convs (with bias) of ``features.{idx}`` ->
+    ``conv{i}`` in order;
+  * EfficientNet-B0: ``features.{s+1}.{j}.block.{k}`` -> ``block{b}`` (the
+    blocks numbered across stages), its squeeze-excite ``.fc1`` / ``.fc2``
+    (with bias) -> ``se.fc1`` / ``se.fc2``; ``features.0`` / ``8`` ->
+    ``stem`` / ``head``;
+  * Inception-V3: the names are torchvision's (``Mixed_5b.branch1x1.conv``);
+  * conv weights are OIHW on both sides (depthwise ones (C, 1, k, k)), so
+    nothing is transposed; BatchNorm ``weight``, ``bias``, ``running_mean``,
+    ``running_var`` keep their names (the backbones always run BN on its
+    running statistics); ``num_batches_tracked`` is read and not used;
+  * the classifier (``fc.*``, ``classifier.*``, Inception's ``AuxLogits.*``)
+    is dropped (the reference replaces it with ``nn.Identity``,
+    ``models.py:134-141``).
 
 Strict, like ``vct``'s: a tensor the backbone needs and the state_dict
 lacks raises ``KeyError``; an unconsumed tensor or a shape mismatch raises
-``ValueError``; nothing is written unless every tensor maps. Only the
-ResNet family is ported so far; another name raises ``NotImplementedError``
-(ROADMAP Queue 1 item 5, which brings the other backbones).
+``ValueError``; nothing is written unless every tensor maps. A name with no
+porter raises ``KeyError``.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -34,8 +48,14 @@ from torch import nn
 __all__ = [
     "PORTERS",
     "load_state_dict_file",
+    "load_torch_alexnet",
     "load_torch_backbone",
+    "load_torch_densenet121",
+    "load_torch_efficientnet_b0",
+    "load_torch_inception_v3",
+    "load_torch_mobilenet_v2",
     "load_torch_resnet",
+    "load_torch_vgg16",
     "port_backbone_into_model",
     "torch_tensor_dict",
 ]
@@ -77,8 +97,10 @@ class _Porter:
             raise ValueError(f"{theirs}: shape {tuple(value.shape)} != expected {want}")
         self.staged[ours] = value
 
-    def conv(self, ours: str, theirs: str) -> None:
+    def conv(self, ours: str, theirs: str, bias: bool = False) -> None:
         self.put(f"{ours}.weight", f"{theirs}.weight")
+        if bias:
+            self.put(f"{ours}.bias", f"{theirs}.bias")
 
     def bn(self, ours: str, theirs: str) -> None:
         for name in ("weight", "bias", "running_mean", "running_var"):
@@ -127,19 +149,124 @@ def load_torch_resnet(backbone: nn.Module, state_dict) -> nn.Module:
     return p.finish()
 
 
-PORTERS = {name: load_torch_resnet
-           for name in ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152")}
+def load_torch_mobilenet_v2(backbone: nn.Module, state_dict) -> nn.Module:
+    """torchvision's mobilenet_v2 into the port's ``MobileNetV2`` in place."""
+    p = _Porter(backbone, state_dict, drop=("classifier.",))
+    p.conv("stem.conv", "features.0.0")
+    p.bn("stem.bn", "features.0.1")
+    for b, ours in enumerate(backbone.blocks):
+        theirs, n = f"features.{b + 1}.conv", getattr(backbone, ours).n_convs
+        # (expand,) depthwise: Conv2dNormActivation pairs; the projection a
+        # bare Conv2d at index n-1 and its BatchNorm2d at n.
+        for j in range(n - 1):
+            p.conv(f"{ours}.conv{j}.conv", f"{theirs}.{j}.0")
+            p.bn(f"{ours}.conv{j}.bn", f"{theirs}.{j}.1")
+        p.conv(f"{ours}.conv{n - 1}.conv", f"{theirs}.{n - 1}")
+        p.bn(f"{ours}.conv{n - 1}.bn", f"{theirs}.{n}")
+    p.conv("head.conv", "features.18.0")
+    p.bn("head.bn", "features.18.1")
+    return p.finish()
+
+
+def load_torch_densenet121(backbone: nn.Module, state_dict) -> nn.Module:
+    """torchvision's densenet121 into the port's ``DenseNet`` in place."""
+    p = _Porter(backbone, state_dict, drop=("classifier.",))
+    p.conv("conv0", "features.conv0")
+    p.bn("norm0", "features.norm0")
+    for ours in backbone.stages:
+        if ours.startswith("transition"):
+            theirs = f"features.transition{int(ours[len('transition'):]) + 1}"
+            p.bn(f"{ours}.norm", f"{theirs}.norm")
+            p.conv(f"{ours}.conv", f"{theirs}.conv")
+            continue
+        block, layer = (int(v) for v in re.fullmatch(r"block(\d+)_layer(\d+)", ours).groups())
+        theirs = f"features.denseblock{block + 1}.denselayer{layer + 1}"
+        for name in ("norm1", "conv1", "norm2", "conv2"):
+            (p.bn if name.startswith("norm") else p.conv)(f"{ours}.{name}", f"{theirs}.{name}")
+    p.bn("norm5", "features.norm5")
+    return p.finish()
+
+
+# torchvision's features.{idx} of each conv, in order.
+_VGG16_FEATURE_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+_ALEXNET_FEATURE_IDX = (0, 3, 6, 8, 10)
+
+
+def _plain_convs(backbone: nn.Module, state_dict, feature_idx) -> nn.Module:
+    p = _Porter(backbone, state_dict, drop=("classifier.",))
+    for i, idx in enumerate(feature_idx):
+        p.conv(f"conv{i}", f"features.{idx}", bias=True)
+    return p.finish()
+
+
+def load_torch_vgg16(backbone: nn.Module, state_dict) -> nn.Module:
+    """torchvision's vgg16 into the port's ``VGG16`` in place."""
+    return _plain_convs(backbone, state_dict, _VGG16_FEATURE_IDX)
+
+
+def load_torch_alexnet(backbone: nn.Module, state_dict) -> nn.Module:
+    """torchvision's alexnet into the port's ``AlexNet`` in place."""
+    return _plain_convs(backbone, state_dict, _ALEXNET_FEATURE_IDX)
+
+
+# Blocks a stage of torchvision's efficientnet_b0; the port numbers them across stages.
+_EFFB0_REPEATS = (1, 2, 2, 3, 3, 4, 1)
+
+
+def load_torch_efficientnet_b0(backbone: nn.Module, state_dict) -> nn.Module:
+    """torchvision's efficientnet_b0 into the port's ``EfficientNetB0`` in place."""
+    p = _Porter(backbone, state_dict, drop=("classifier.",))
+    p.conv("stem.conv", "features.0.0")
+    p.bn("stem.bn", "features.0.1")
+    stages = [(s, j) for s, n in enumerate(_EFFB0_REPEATS) for j in range(n)]
+    if len(stages) != len(backbone.blocks):
+        raise ValueError(f"efficientnet_b0 has {len(stages)} blocks, the backbone "
+                         f"{len(backbone.blocks)}")
+    for ours, (stage, j) in zip(backbone.blocks, stages):
+        theirs, n = f"features.{stage + 1}.{j}.block", getattr(backbone, ours).n_convs
+        # (expand,) depthwise, squeeze-excite at index n-1, projection at n.
+        for k in range(n - 1):
+            p.conv(f"{ours}.conv{k}.conv", f"{theirs}.{k}.0")
+            p.bn(f"{ours}.conv{k}.bn", f"{theirs}.{k}.1")
+        p.conv(f"{ours}.se.fc1", f"{theirs}.{n - 1}.fc1", bias=True)
+        p.conv(f"{ours}.se.fc2", f"{theirs}.{n - 1}.fc2", bias=True)
+        p.conv(f"{ours}.conv{n - 1}.conv", f"{theirs}.{n}.0")
+        p.bn(f"{ours}.conv{n - 1}.bn", f"{theirs}.{n}.1")
+    p.conv("head.conv", "features.8.0")
+    p.bn("head.bn", "features.8.1")
+    return p.finish()
+
+
+def load_torch_inception_v3(backbone: nn.Module, state_dict) -> nn.Module:
+    """torchvision's inception_v3 into the port's ``InceptionV3`` in place
+    (the aux classifier dropped). The port's names are torchvision's: each
+    BasicConv2d's ``conv`` and ``bn``."""
+    p = _Porter(backbone, state_dict, drop=("fc.", "AuxLogits."))
+    for name, mod in backbone.named_modules():
+        if isinstance(getattr(mod, "conv", None), nn.Conv2d):
+            p.conv(f"{name}.conv", f"{name}.conv")
+            p.bn(f"{name}.bn", f"{name}.bn")
+    return p.finish()
+
+
+PORTERS = {
+    **{name: load_torch_resnet
+       for name in ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152")},
+    "mobilenet_v2": load_torch_mobilenet_v2,
+    "densenet121": load_torch_densenet121,
+    "vgg16": load_torch_vgg16,
+    "alexnet": load_torch_alexnet,
+    "efficientnet_b0": load_torch_efficientnet_b0,
+    "inception_v3": load_torch_inception_v3,
+}
 
 
 def load_torch_backbone(name: str, backbone: nn.Module, state_dict) -> nn.Module:
     """Port a torchvision ``state_dict`` for backbone ``name`` into
-    ``backbone`` in place. Raises on an unported family, missing tensors,
+    ``backbone`` in place. Raises on an unknown name, missing tensors,
     extra tensors, or any shape mismatch."""
     if name not in PORTERS:
-        raise NotImplementedError(
-            f"No weight porter for backbone {name!r} in vct_torch yet (ROADMAP Queue 1 item 5); "
-            f"available: {sorted(PORTERS)}"
-        )
+        raise KeyError(f"No weight porter for backbone {name!r}; available: {sorted(PORTERS)}")
     return PORTERS[name](backbone, state_dict)
 
 

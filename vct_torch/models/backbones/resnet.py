@@ -2,8 +2,8 @@
 
 Port of ``vct/models/backbones/resnet.py``: 7x7 stem, BasicBlock/Bottleneck
 stages, global average pool, feature output (no fc). BatchNorm always runs in
-inference mode with its running statistics, under ``train()`` too (as
-``vct`` keeps its ported backbones at running averages in every mode). Submodule names are the Flax ones
+inference mode with its running statistics, under ``train()`` too
+(``common.Backbone``). Submodule names are the Flax ones
 (``layer1_0.conv1``, ``downsample_conv``, ``downsample_bn``) so
 ``vct_torch.bridge`` maps weights mechanically.
 
@@ -16,9 +16,10 @@ from __future__ import annotations
 
 from typing import Sequence, Type
 
-import torch
 import torch.nn.functional as F
 from torch import nn
+
+from vct_torch.models.backbones.common import Backbone
 
 __all__ = ["ResNet", "resnet18", "resnet34", "resnet50", "resnet101", "resnet152"]
 
@@ -27,8 +28,17 @@ def _conv(cin: int, cout: int, kernel: int, stride: int, pad: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, kernel, stride=stride, padding=pad, bias=False)
 
 
+class _BN(nn.BatchNorm2d):
+    """``vct``'s ``_BN``: a Flax module that wraps its BatchNorm, whose
+    variables therefore sit one level down, under ``BatchNorm_0``
+    (``vct/models/backbones/resnet.py:57``); ``vct_torch.bridge`` reads
+    ``flax_child``."""
+
+    flax_child = "BatchNorm_0"
+
+
 def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5)
+    return _BN(c, eps=1e-5)
 
 
 class BasicBlock(nn.Module):
@@ -77,7 +87,7 @@ class Bottleneck(nn.Module):
         return F.relu(out + identity)
 
 
-class ResNet(nn.Module):
+class ResNet(Backbone):
     """Feature-extractor ResNet: input (N, 3, H, W) -> features (N, C)."""
 
     def __init__(self, block: Type[nn.Module], stage_sizes: Sequence[int]):
@@ -95,15 +105,6 @@ class ResNet(nn.Module):
                 self.blocks.append(name)
                 in_features = width * block.expansion
         self.feature_dim = 512 * block.expansion
-
-    def train(self, mode: bool = True):
-        """Set the mode, but keep every BatchNorm in eval mode: its running
-        statistics, never batch statistics or running-stat updates."""
-        super().train(mode)
-        for m in self.modules():
-            if isinstance(m, nn.BatchNorm2d):
-                m.eval()
-        return self
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))

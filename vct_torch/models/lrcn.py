@@ -29,7 +29,24 @@ from vct_torch.models.layers import AdaptDSL, CanonicalAdapter, MultiBinaryHead,
 from vct_torch.models.recurrent import RNNStack
 from vct_torch.models.ssm import MambaResidualBlock
 
-__all__ = ["LRCN", "build_lrcn"]
+__all__ = ["LRCN", "backbone_features", "build_lrcn"]
+
+
+def backbone_features(backbone: nn.Module, x, dtype: torch.dtype):
+    """(B, T, H, W, 3) clips -> (B, T, F) f32 features of ``backbone`` over
+    the flattened B·T frames, under bf16 autocast when ``dtype`` is bf16;
+    under ``torch.no_grad`` when no backbone parameter requires a gradient."""
+    b, t = x.shape[0], x.shape[1]
+    # (B·T, H, W, 3) -> NCHW view; its strides are channels-last already.
+    frames = x.reshape((b * t,) + tuple(x.shape[2:])).permute(0, 3, 1, 2)
+    with torch.set_grad_enabled(torch.is_grad_enabled()
+                                and any(p.requires_grad for p in backbone.parameters())):
+        if dtype == torch.bfloat16:
+            with torch.autocast(device_type=frames.device.type, dtype=torch.bfloat16):
+                feats = backbone(frames)
+        else:
+            feats = backbone(frames.to(dtype))
+    return feats.to(torch.float32).reshape(b, t, -1)
 
 
 class LRCN(nn.Module):
@@ -93,27 +110,10 @@ class LRCN(nn.Module):
     def forward(self, x, *, from_features: bool = False, features_only: bool = False):
         if from_features:
             return self._head(x)
-        feats = self._backbone_features(x)
+        feats = backbone_features(self.cnn_backbone, x, self.dtype)
         if features_only:
             return feats
         return self._head(feats)
-
-    def _backbone_features(self, x):
-        b, t = x.shape[0], x.shape[1]
-        # (B·T, H, W, 3) -> NCHW view; its strides are channels-last already.
-        frames = x.reshape((b * t,) + tuple(x.shape[2:])).permute(0, 3, 1, 2)
-        if not any(p.requires_grad for p in self.cnn_backbone.parameters()):
-            with torch.no_grad():
-                return self._run_backbone(frames, b, t)
-        return self._run_backbone(frames, b, t)
-
-    def _run_backbone(self, frames, b, t):
-        if self.dtype == torch.bfloat16:
-            with torch.autocast(device_type=frames.device.type, dtype=torch.bfloat16):
-                feats = self.cnn_backbone(frames)
-        else:
-            feats = self.cnn_backbone(frames.to(self.dtype))
-        return feats.to(torch.float32).reshape(b, t, -1)
 
     def _head(self, feats):
         h = self.adapt(feats.to(torch.float32))

@@ -1,5 +1,5 @@
-"""A whole reference-LRCN torch state_dict into the port's LRCN: the port of
-``vct/models/lrcn_port.py``.
+"""A whole reference-LRCN or VideoMamba torch state_dict into the port's
+model: the port of ``vct/models/lrcn_port.py``.
 
 The reference checkpoints whole torch modules (``train_eval.py:53``
 ``torch.save(model)``); a user exports ``torch.load(path).state_dict()``
@@ -24,8 +24,10 @@ porter touched (the ``*_reverse`` half of a bidirectional checkpoint ported
 with ``bidirectional=False``) raises ``ValueError``, as does a shape that
 does not match the model; a tensor the layout needs and the state_dict
 lacks raises ``KeyError``. Nothing is written unless everything maps.
-``port_reference_videomamba`` and ``port_reference_s2vt`` wait for their
-models (ROADMAP Queue 1 items 5 and 6).
+``port_reference_videomamba`` does the same for a reference VideoMamba
+(``cnn_backbone``, ``adapt``, ``layers.{i}.norm/mixer`` -> ``layer_{i}``,
+``norm_f``, ``classifier``); ``port_reference_s2vt`` waits for captioning
+(ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -116,14 +118,32 @@ def _check(model: nn.Module, staged: Dict[str, np.ndarray], sd: _ConsumeTracker,
     return target
 
 
+def _finish(model: nn.Module, staged: Dict[str, np.ndarray], sd: _ConsumeTracker,
+            backbone_name: str) -> nn.Module:
+    """Check the staged tensors and the backbone region, then write: the
+    backbone porter checks and copies its part, and only after it the rest
+    is copied."""
+    backbone_sd = sd.consume_region("cnn_backbone")
+    target = _check(model, staged, sd, skip="cnn_backbone.")
+    load_torch_backbone(backbone_name, model.cnn_backbone, backbone_sd)
+    with torch.no_grad():
+        for name, value in staged.items():
+            target[name].copy_(torch.from_numpy(np.array(value)).to(target[name].dtype))
+    return model
+
+
+def _fused_heads(sd: _ConsumeTracker, prefix: str, n: int):
+    """A ModuleList of per-class Linear(F, 1) -> one Linear(F, n)."""
+    return (np.concatenate([sd[f"{prefix}.{i}.weight"] for i in range(n)]),
+            np.concatenate([sd[f"{prefix}.{i}.bias"] for i in range(n)]))
+
+
 def port_reference_lrcn(model: nn.Module, state_dict, model_cfg) -> nn.Module:
     """Port a reference LRCN state_dict into the port's ``model`` in place
     (an ``LRCN`` built from ``model_cfg``, the ``ModelConfig`` that
     describes the checkpoint: backbone, rnn_type, sizes, classif_mode).
     Returns the model; raises ``KeyError`` / ``ValueError`` on mismatches."""
     sd = _ConsumeTracker(torch_tensor_dict(state_dict))
-    # The rest is staged and checked first; the backbone porter then checks
-    # and copies its part, and only after it the rest is copied.
     staged: Dict[str, np.ndarray] = {}
     for i in (1, 2, 3):
         _copy(staged, sd, f"adapt.adapt{i}", f"adapt{i}")
@@ -139,23 +159,32 @@ def port_reference_lrcn(model: nn.Module, state_dict, model_cfg) -> nn.Module:
         for name in ("bn0", "fc", "bna", "fca", "bnb", "fcb"):
             _copy(staged, sd, f"head.{name}", name)
     else:
-        # ModuleList of per-class Linear(F, 1) -> one Linear(F, C)
-        n = model_cfg.num_classes
-        staged["head.binary_heads.weight"] = np.concatenate(
-            [sd[f"fc.{i}.weight"] for i in range(n)])
-        staged["head.binary_heads.bias"] = np.concatenate([sd[f"fc.{i}.bias"] for i in range(n)])
-    backbone_sd = sd.consume_region("cnn_backbone")
-    target = _check(model, staged, sd, skip="cnn_backbone.")
-    load_torch_backbone(model_cfg.cnn_backbone, model.cnn_backbone, backbone_sd)
-    with torch.no_grad():
-        for name, value in staged.items():
-            target[name].copy_(torch.from_numpy(np.array(value)).to(target[name].dtype))
-    return model
+        staged["head.binary_heads.weight"], staged["head.binary_heads.bias"] = _fused_heads(
+            sd, "fc", model_cfg.num_classes)
+    return _finish(model, staged, sd, model_cfg.cnn_backbone)
 
 
-def port_reference_videomamba(model, state_dict, model_cfg):
-    raise NotImplementedError("porting a reference VideoMamba is not in vct_torch yet "
-                              "(ROADMAP Queue 1 item 5, with the VideoMamba model)")
+def port_reference_videomamba(model: nn.Module, state_dict, model_cfg) -> nn.Module:
+    """Port a reference VideoMamba state_dict (``lrcn/videomamba.py:332-386``:
+    ``cnn_backbone``, one Linear ``adapt``, ``layers.{i}.norm/mixer``
+    residual blocks, ``norm_f``, a ``classifier`` Linear or a
+    ``classifier.{i}`` list of per-class Linears for multiple_binary) into
+    the port's ``VideoMamba`` ``model`` in place, ``model_cfg`` its
+    ``ModelConfig``. Returns the model; raises ``KeyError`` / ``ValueError``
+    on mismatches, having written nothing."""
+    sd = _ConsumeTracker(torch_tensor_dict(state_dict))
+    staged: Dict[str, np.ndarray] = {}
+    _copy(staged, sd, "adapt", "adapt")
+    for i in range(model_cfg.vm_n_layer):
+        staged[f"layer_{i}.norm.weight"] = sd[f"layers.{i}.norm.weight"]
+        _port_mixer(staged, sd, f"layer_{i}.mixer", f"layers.{i}.mixer")
+    staged["norm_f.weight"] = sd["norm_f.weight"]
+    if model_cfg.classif_mode == "multiclass":
+        _copy(staged, sd, "classifier", "classifier")
+    else:
+        staged["classifier.weight"], staged["classifier.bias"] = _fused_heads(
+            sd, "classifier", model_cfg.num_classes)
+    return _finish(model, staged, sd, model_cfg.cnn_backbone)
 
 
 def port_reference_s2vt(model, state_dict):

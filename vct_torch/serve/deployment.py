@@ -64,7 +64,8 @@ def load_model(model_dir: str, device=None):
     (Orbax) checkpoint raises ``ValueError``; a tensor that does not match
     the rebuilt model raises (``load_weights``)."""
     state_dict, cfg, class_names, _ = load_checkpoint(model_dir)
-    model = build_model(cfg.model, cfg.data.sequence_length, device=device)
+    model = build_model(cfg.model, cfg.data.sequence_length, device=device,
+                        frame_size=(cfg.data.img_height, cfg.data.img_width))
     load_weights(model, state_dict, model_dir)
     return model.eval(), class_names, cfg
 

@@ -1,10 +1,14 @@
-"""CLI: convert a reference-LRCN torch state_dict into a vct_torch checkpoint.
+"""CLI: convert a reference-LRCN or VideoMamba torch state_dict into a
+vct_torch checkpoint.
 
     python -m vct_torch.tools.port_reference --state_dict lrcn_sd.pth --out DIR \
         --num_classes 4 --sequence_length 60 --cnn_backbone resnet50 \
         --rnn_type mamba --rnn_input_size 8 --rnn_layer 3 [--rnn_out all]
         [--classif_mode multiclass] [--bidirectional] [--classes a,b,c,d]
         [--scan_impl pallas] [--device cpu]
+    python -m vct_torch.tools.port_reference --model_family videomamba ... \
+        [--vm_d_model 512 --vm_d_inner 2048 --vm_n_state 16 --vm_dt_rank 16
+         --vm_n_layer 4 --vm_temporal_mode mean]
 
 The port of ``vct/tools/port_reference.py``, with the same options and
 ``--scan_impl`` (the manifest's ``model.scan_impl``: "pallas" serves the
@@ -13,8 +17,7 @@ reference saves whole torch modules (``train_eval.py:53``); export their
 state_dict in any torch environment (``torch.save(torch.load(p).state_dict(),
 out)``) and feed it here. The model is built and ported on the card unless
 ``--device`` names another device; the result is a vct_torch checkpoint
-that ``vct_torch.serve.deployment.load_model`` loads. ``--model_family
-videomamba`` is not ported yet (ROADMAP Queue 1 item 5) and raises.
+that ``vct_torch.serve.deployment.load_model`` loads.
 """
 
 from __future__ import annotations
@@ -46,17 +49,20 @@ def main(argv=None) -> int:
                    help="comma-separated class names for the manifest")
     p.add_argument("--scan_impl", default="associative", choices=["associative", "scan", "pallas"],
                    help="the Mamba head's scan; pallas: the card's kernel (K3)")
+    # VideoMamba's sizes (lrcn/videomamba.py defaults)
+    p.add_argument("--vm_d_model", type=int, default=512)
+    p.add_argument("--vm_d_inner", type=int, default=2048)
+    p.add_argument("--vm_n_state", type=int, default=16)
+    p.add_argument("--vm_dt_rank", type=int, default=16)
+    p.add_argument("--vm_n_layer", type=int, default=4)
+    p.add_argument("--vm_temporal_mode", default="mean")
     p.add_argument("--device", default=None, help="default: the card")
     args = p.parse_args(argv)
-    if args.model_family != "lrcn":
-        raise NotImplementedError(
-            f"--model_family {args.model_family} is not ported to vct_torch yet "
-            "(ROADMAP Queue 1 item 5)")
 
     from vct_torch.core.config import Config
     from vct_torch.models import build_model
     from vct_torch.models.backbones.port import load_state_dict_file
-    from vct_torch.models.lrcn_port import port_reference_lrcn
+    from vct_torch.models.lrcn_port import port_reference_lrcn, port_reference_videomamba
     from vct_torch.train.checkpoint import save_checkpoint
 
     overrides = {
@@ -74,6 +80,12 @@ def main(argv=None) -> int:
         "data.sequence_length": str(args.sequence_length),
         "data.img_height": str(args.img_height),
         "data.img_width": str(args.img_width),
+        "model.vm_d_model": str(args.vm_d_model),
+        "model.vm_d_inner": str(args.vm_d_inner),
+        "model.vm_n_state": str(args.vm_n_state),
+        "model.vm_dt_rank": str(args.vm_dt_rank),
+        "model.vm_n_layer": str(args.vm_n_layer),
+        "model.vm_temporal_mode": args.vm_temporal_mode,
     }
     if args.hidden_size is not None:
         overrides["model.hidden_size"] = str(args.hidden_size)
@@ -86,7 +98,9 @@ def main(argv=None) -> int:
             f"{args.num_classes}; the manifest must label every head output")
 
     model = build_model(cfg.model, cfg.data.sequence_length, device=args.device)
-    port_reference_lrcn(model, load_state_dict_file(args.state_dict), cfg.model)
+    porter = (port_reference_videomamba if args.model_family == "videomamba"
+              else port_reference_lrcn)
+    porter(model, load_state_dict_file(args.state_dict), cfg.model)
     path = save_checkpoint(args.out, model.state_dict(), cfg, classes)
     print(f"Ported checkpoint written to {path}")
     return 0

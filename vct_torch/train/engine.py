@@ -21,8 +21,9 @@ The training semantics of ``vct`` (and of the reference,
   metric block of ``vct.core.metrics_contract``.
 
 Per-step scalars stay on the device for a whole epoch; one fetch an epoch
-(``train.log_every`` syncs every N steps to print a step line). The backbone's
-BatchNorm stays in eval mode under ``train()`` (the ResNet's own ``train``).
+(``train.log_every`` syncs every N steps to print a step line). A backbone's
+BatchNorm stays in eval mode under ``train()`` (``backbones.common.Backbone``);
+the scratch CNN ``lrcn2``'s trains on batch statistics, as in ``vct``.
 Dropout draws its masks from a ``torch.Generator`` on the device seeded from
 ``train.seed``, part of the train state.
 
@@ -156,7 +157,8 @@ class Trainer:
         self.num_classes = m.num_classes
         self.classif_mode = m.classif_mode
         self.device = resolve_device(device)
-        self.model = build_model(m, cfg.data.sequence_length, device=self.device, seed=t.seed)
+        self.model = build_model(m, cfg.data.sequence_length, device=self.device, seed=t.seed,
+                                 frame_size=(cfg.data.img_height, cfg.data.img_width))
         self.class_weights = (
             torch.as_tensor(class_weights, dtype=torch.float32, device=self.device)
             if class_weights is not None else None
