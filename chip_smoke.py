@@ -164,7 +164,28 @@ line):
     the card and on the CPU, ``load_model`` on both, one request served on
     the card (launches counted), frames the CPU's and logits within 1e-4;
     one summary line gives the clips/s and the train step;
-14. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
+14. captioning — the five captioners of ``vct``'s ``CaptionConfig`` at full
+    width (S2VT v2, 1s2vt, the transformer, the v1 LSTM and GRU; resnet50 in
+    f32, width 512, 30 frames of 224x224, captions of 30 tokens, a seeded
+    stand-in vocabulary of 10,000 words, seeded weights) each caption 8
+    clips by beam search (K=3) and greedily, with every kernel's launch
+    counter read around the run and required to be 0 (no kernel is on this
+    path, in ``vct`` or in the port); each is held on the first 2 clips
+    (``CAPTION_CPU_CLIPS``: all 8 cost the CPU 145 s) against an f32 copy on
+    the CPU, TF32 off: teacher-forced log-probs within 1e-4, beam and greedy
+    tokens equal except where the CPU scores the two sequences within 1e-4
+    of each other (both printed), beam scores within 1e-4; beam captioning
+    is timed as ``caption_<kind>_clips_per_s`` beside the backbone alone
+    (``backbone_ms``; ``decode_ms`` the rest). ``python -m vct_torch.caption
+    --synthetic`` runs 2 epochs for S2VT and the transformer (its 'Average
+    BLEU score:' line checked); the S2VT train step at the CLI's batch
+    (B=4, 30x224x224) is timed with and without the feature cache
+    (``caption_train_step_ms``); 5 Adam steps on the card's backbone
+    features are held card against CPU (dropout 0, 1e-4); a run resumed
+    after epoch 1 must be bit-equal to the uninterrupted one; a seeded
+    reference S2VT state_dict goes through ``port_reference_s2vt`` on the
+    card and on the CPU, log-probs within 1e-4; launches 0 throughout;
+15. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
     launches, error, time, plain time, bound (K3 forward and backward also at
     the VideoMamba step, B=32 T=16 D=2048 N=16, ``"config": "videomamba"``,
     launches from phase 13) and, for K2/K5, the design,
@@ -215,6 +236,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -1585,6 +1607,31 @@ def _reference_lrcn_keys(model_cfg, seq_len: int) -> dict:
     return keys
 
 
+def _reference_s2vt_keys(backbone: str, cnn_output_size: int, hidden: int, vocab: int) -> dict:
+    """The reference VideoAnalysisModel's state_dict layout
+    (``s2vt/beam_search.py:229-382``, one GRU layer each side): key ->
+    shape. PretrainedCNN registers the torchvision backbone twice: whole
+    under ``cnn.model`` and, without its fc, as the ``cnn.feature_extractor``
+    Sequential (children conv1, bn1, relu, maxpool, layer1-4, avgpool)."""
+    bb = _torchvision_resnet_keys(backbone)
+    keys = {f"cnn.model.{k}": s for k, s in bb.items()}
+    seq = {"conv1": "0", "bn1": "1", **{f"layer{i}": str(3 + i) for i in range(1, 5)}}
+    for k, s in bb.items():
+        head, _, rest = k.partition(".")
+        if head != "fc":
+            keys[f"cnn.feature_extractor.{seq[head]}.{rest}"] = s
+    feat, h = bb["fc.weight"][1], hidden
+    for name, (fout, fin) in (("cnn.fc", (cnn_output_size, feat)),
+                              ("encoder.embedding", (h, cnn_output_size)),
+                              ("decoder.attention.attn", (h, h)), ("decoder.out", (vocab, h))):
+        keys.update({f"{name}.weight": (fout, fin), f"{name}.bias": (fout,)})
+    for side, fin in (("encoder", h), ("decoder", 2 * h)):
+        keys.update({f"{side}.gru.weight_ih_l0": (3 * h, fin), f"{side}.gru.weight_hh_l0": (3 * h, h),
+                     f"{side}.gru.bias_ih_l0": (3 * h,), f"{side}.gru.bias_hh_l0": (3 * h,)})
+    keys["decoder.embedding.weight"] = (vocab, h)
+    return keys
+
+
 def _seeded_state_dict(torch, keys: dict, seed: int) -> dict:
     """Tensors for a key -> shape layout from a numpy seed: weights of two
     or more dimensions N(0, 1/fan_in); norms' and BatchNorms' weights near
@@ -2033,6 +2080,323 @@ def _zoo_path(torch, gen, gpu) -> dict:
     print(json.dumps(summary))
     print(f"zoo phase: {time.perf_counter() - t0:.1f} s")
     return {"served": served, "trained": trained}
+
+
+# The captioning phase: the five captioners of vct's CaptionConfig at full
+# width (vct/core/config.py:264-297: resnet50 in f32, cnn_output_size and
+# hidden_size 512, 30 frames, captions of 30 tokens, beam 3; the 1s2vt's 4
+# GRU layers, the transformer's 8 heads and 2 layers, the v1 decoders' 3
+# layers and 8 heads) on 224x224 frames, with seeded weights and a seeded
+# vocabulary of CAPTION_VOCAB words standing in for one built from an
+# annotation file (none is in the repo). No kernel is on this path, in vct
+# or in the port: every launch counter must read 0 around it.
+CAPTION_KINDS = {"s2vt": {}, "1s2vt": {"encoder_layers": 4},
+                 "transformer": {"model_kind": "transformer"},
+                 "v1_lstm": {"model_kind": "v1_lstm"}, "v1_gru": {"model_kind": "v1_gru"}}
+CAPTION_VOCAB = 10_000
+# B=8 is vct's checkpoint chunk (vct/caption/infer.py:192); 30x224x224 its clips.
+CAPTION_CLIPS, CAPTION_T, CAPTION_HW = 8, 30, 224
+# Clips the CPU holds the card to: 2 of the 8. On all 8 the CPU's share of
+# the phase took 145 s on the card's host (29 s a captioner: three f32
+# resnet50 passes over 240 frames of 224x224), past the phase's 60 s.
+CAPTION_CPU_CLIPS = 2
+# The CLI's batch (vct/caption/__main__.py:100) for the timed train step.
+CAPTION_TRAIN_BATCH = 4
+CAPTION_TOL = 1e-4
+
+
+def _all_counters():
+    """Every kernel wrapper's launch counter, serving's and training's."""
+    return {**_serve_counters(), **_train_counters()}
+
+
+def _require_no_launches(label: str, counters: dict) -> None:
+    """Fail unless every counter reads 0: captioning reaches no kernel."""
+    launched = _nonzero({n: fn.launches for n, fn in counters.items()})
+    if launched:
+        raise AssertionError(f"{label}: kernels launched on a path that reaches none: {launched}")
+
+
+def _caption_vocab():
+    """The stand-in vocabulary: the four specials and CAPTION_VOCAB - 4 words."""
+    from vct_torch.caption.vocab import Vocabulary
+
+    vocab = Vocabulary()
+    for i in range(CAPTION_VOCAB - 4):
+        vocab.add_word(f"w{i}")
+    return vocab
+
+
+def _caption_cfg(kind: str, **extra):
+    from vct_torch.core.config import CaptionConfig
+
+    return CaptionConfig(**{**CAPTION_KINDS[kind], **extra})
+
+
+def _seeded_captions(torch, gen, n: int, length: int):
+    """Token rows as ``encode_caption`` lays them out: <start>, 5 (fewer
+    in a short row) to length - 2 words, <end>, <pad> to the end."""
+    rows = torch.zeros(n, length, dtype=torch.long)
+    for r in range(n):
+        k = int(torch.randint(min(5, length - 2), length - 1, (1,), generator=gen))
+        rows[r, 0], rows[r, k + 1] = 1, 2
+        rows[r, 1 : k + 1] = torch.randint(4, CAPTION_VOCAB, (k,), generator=gen)
+    return rows
+
+
+def _sequence_scores(torch, model, video, seqs, stops):
+    """The model's teacher-forced log-prob of each row of ``seqs`` (B, L)
+    summed through position ``stops[b]``: a beam's score of that sequence
+    when ``stops`` is its first <end> (a greedy step's rank of its prefix
+    when ``stops`` is the first position two sequences part)."""
+    with torch.no_grad():
+        logp = model.eval()(video, seqs)
+    tok = logp.gather(-1, seqs[..., None])[..., 0]
+    keep = torch.arange(seqs.shape[1])[None, :] <= stops[:, None]
+    return (tok * keep).sum(dim=1)
+
+
+def _first_end(torch, seqs, end: int = 2):
+    """Each row's first <end> position (its last where it has none)."""
+    is_end = seqs == end
+    last = torch.full((seqs.shape[0],), seqs.shape[1] - 1, dtype=torch.long)
+    return torch.where(is_end.any(dim=1), is_end.to(torch.long).argmax(dim=1), last)
+
+
+def _hold_tokens(label: str, card, cpu, scores, tol: float = CAPTION_TOL) -> int:
+    """Card and CPU token rows must be equal. The one allowed exception is a
+    tie: a row whose two sequences the CPU scores within ``tol`` of each
+    other (``scores()``, called only if a row differs: the CPU's scores of
+    the card's rows and of its own); both sequences are printed. Returns
+    the ties."""
+    differ = [b for b in range(cpu.shape[0]) if not bool((card[b] == cpu[b]).all())]
+    if not differ:
+        return 0
+    card_scores, cpu_scores = scores()
+    for b in differ:
+        gap = abs(float(card_scores[b]) - float(cpu_scores[b]))
+        if gap > tol:
+            raise AssertionError(f"{label}: row {b} card {card[b].tolist()} != CPU "
+                                 f"{cpu[b].tolist()} (CPU scores {float(card_scores[b])} vs "
+                                 f"{float(cpu_scores[b])}, gap {gap} > {tol})")
+        print(f"{label}: row {b} ties within {tol} on the CPU (gap {gap}): card "
+              f"{card[b].tolist()} / CPU {cpu[b].tolist()}")
+    return len(differ)
+
+
+def _caption_serve(torch, gen, gpu, kind: str, videos) -> dict:
+    """One captioner at full width on the card: beam (K=3) and greedy
+    captions of CAPTION_CLIPS clips and the teacher-forced log-probs,
+    launches read around exactly that run (all 0); the card held against
+    an f32 copy on the CPU (TF32 off) on the first CAPTION_CPU_CLIPS clips;
+    beam captioning timed as clips/s, the backbone alone beside it."""
+    from vct_torch.caption.beam import beam_search, greedy_decode
+    from vct_torch.caption.models import frames_of
+    from vct_torch.caption.train import build_captioner
+
+    cfg = _caption_cfg(kind)
+    model = build_captioner(cfg, CAPTION_VOCAB, seed=0)
+    targets = _seeded_captions(torch, gen, CAPTION_CLIPS, cfg.max_caption_len).cuda()
+    counters = _all_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    beam_t, beam_s = beam_search(model, videos, cfg.beam_width, cfg.max_caption_len)
+    greedy = greedy_decode(model, videos, cfg.max_caption_len)
+    with torch.no_grad():
+        logp = model(videos, targets)
+    torch.cuda.synchronize()
+    _require_no_launches(f"caption {kind}", counters)
+
+    n = CAPTION_CPU_CLIPS
+    t0 = time.perf_counter()
+    cpu_model = build_captioner(cfg, CAPTION_VOCAB, device="cpu", seed=0)
+    v_cpu, t_cpu = videos[:n].cpu(), targets[:n].cpu()
+    with torch.no_grad():
+        logp_cpu = cpu_model(v_cpu, t_cpu)
+    err = (logp[:n].cpu() - logp_cpu).abs().max().item()
+    torch.testing.assert_close(logp[:n].cpu(), logp_cpu, atol=CAPTION_TOL, rtol=CAPTION_TOL)
+    cpu_t, cpu_s = beam_search(cpu_model, v_cpu, cfg.beam_width, cfg.max_caption_len)
+    card_t = beam_t[:n].cpu()
+    seq_card, seq_cpu = card_t[:, 1:], cpu_t[:, 1:]
+    ties = _hold_tokens(f"caption {kind} beam", card_t, cpu_t, lambda: (
+        _sequence_scores(torch, cpu_model, v_cpu, seq_card, _first_end(torch, seq_card)),
+        _sequence_scores(torch, cpu_model, v_cpu, seq_cpu, _first_end(torch, seq_cpu))))
+    same = (card_t == cpu_t).all(dim=1)
+    score_err = (beam_s[:n].cpu() - cpu_s)[same].abs().max().item() if bool(same.any()) else 0.0
+    if score_err > CAPTION_TOL * max(1.0, cpu_s.abs().max().item()):
+        raise AssertionError(f"caption {kind}: beam scores card vs CPU err {score_err}")
+    cpu_g = greedy_decode(cpu_model, v_cpu, cfg.max_caption_len)
+    card_g = greedy[:n].cpu()
+    parted = (card_g != cpu_g).to(torch.long).argmax(dim=1)  # the first position they part
+    ties += _hold_tokens(f"caption {kind} greedy", card_g, cpu_g, lambda: (
+        _sequence_scores(torch, cpu_model, v_cpu, card_g, parted),
+        _sequence_scores(torch, cpu_model, v_cpu, cpu_g, parted)))
+    cpu_s_elapsed = time.perf_counter() - t0
+    del cpu_model
+
+    beam_ms = _events_ms(torch, lambda: beam_search(model, videos, cfg.beam_width,
+                                                    cfg.max_caption_len), iters=3, warmup=1)
+    greedy_ms = _events_ms(torch, lambda: greedy_decode(model, videos, cfg.max_caption_len),
+                           iters=3, warmup=1)
+    with torch.no_grad():
+        backbone_ms = _events_ms(torch, lambda: model.cnn(frames_of(videos), features_only=True),
+                                 iters=3, warmup=1)
+    out = {"caption": kind, f"caption_{kind}_clips_per_s": CAPTION_CLIPS * 1e3 / beam_ms,
+           "clips": CAPTION_CLIPS, "beam_ms": beam_ms, "backbone_ms": backbone_ms,
+           "decode_ms": beam_ms - backbone_ms, "greedy_ms": greedy_ms,
+           "logp_max_abs_err_vs_cpu": err, "beam_score_max_abs_err_vs_cpu": score_err,
+           "cpu_held_clips": n, "ties": ties, "cpu_s": cpu_s_elapsed,
+           "launches": 0, "gpu": gpu}
+    print(json.dumps(out), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _caption_cli(torch, kind: str, tmp: Path) -> float:
+    """``python -m vct_torch.caption --synthetic`` (``main``, 2 epochs) at
+    full width on the card, launches read around it (all 0); returns the
+    BLEU of its 'Average BLEU score:' line."""
+    import contextlib
+    import io
+
+    from vct_torch.caption.__main__ import main
+
+    counters = _all_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(["--synthetic", "--epochs", "2", "--model_kind", CAPTION_KINDS[kind].get(
+            "model_kind", "s2vt"), "--checkpoint_dir", str(tmp / f"cli_{kind}")])
+    torch.cuda.synchronize()
+    out = buf.getvalue()
+    lines = [l for l in out.splitlines() if l.startswith("Average BLEU score:")]
+    epochs = [l for l in out.splitlines() if l.startswith("Epoch [")]
+    if rc != 0 or len(lines) != 1 or len(epochs) != 2 or "inference_duration:" not in out:
+        raise AssertionError(f"caption CLI ({kind}) rc {rc}, output:\n{out}")
+    _require_no_launches(f"caption CLI {kind}", counters)
+    bleu = float(lines[0].split(":")[1])
+    print(f"caption CLI ({kind}): {epochs[-1]}; {lines[0]}")
+    return bleu
+
+
+def _caption_train(torch, gen, gpu, tmp: Path) -> dict:
+    """The S2VT train step at the CLI's batch on 30x224x224 clips, timed
+    with and without the feature cache; 5 Adam steps card against CPU on
+    the card's backbone features (dropout 0); a run resumed after epoch 1
+    bit-equal to the uninterrupted one (dropout on); a seeded reference
+    S2VT state_dict through ``port_reference_s2vt`` on the card and on the
+    CPU."""
+    from vct_torch.caption.train import CaptionTrainer, build_captioner
+    from vct_torch.models.lrcn_port import port_reference_s2vt
+
+    vocab = _caption_vocab()
+    cfg = _caption_cfg("s2vt", dropout=0.0)
+    B = CAPTION_TRAIN_BATCH
+    clips = torch.rand(B, CAPTION_T, CAPTION_HW, CAPTION_HW, 3, generator=gen).cuda()
+    caps = [_seeded_captions(torch, gen, B, cfg.max_caption_len).cuda() for _ in range(5)]
+    mask = torch.ones(B, device=clips.device)
+    counters = _all_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    trainer = CaptionTrainer(cfg, vocab)
+    state = trainer.init_state()
+    step_ms = _events_ms(torch, lambda: trainer._train_step(state, clips, caps[0], mask),
+                         iters=5, warmup=2)
+    with torch.no_grad():
+        feats = trainer.model.extract_features(clips)
+    trainer._feature_mode = True
+    feat_step_ms = _events_ms(torch, lambda: trainer._train_step(state, feats, caps[0], mask),
+                              iters=10, warmup=2)
+    del trainer, state
+
+    # 5 Adam steps, card against CPU, from the same seeded weights and features.
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        trainer = CaptionTrainer(cfg, vocab, device=dev)
+        trainer._feature_mode = True
+        state = trainer.init_state()
+        x = feats.to(dev)
+        losses = [trainer._train_step(state, x, c.to(dev), mask.to(dev))[0].item() for c in caps]
+        runs[dev] = (losses, {n: p.detach().cpu() for n, p in trainer.model.named_parameters()
+                              if p.requires_grad})
+        del trainer, state
+    (l_card, p_card), (l_cpu, p_cpu) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    param_err = max(((p_card[n] - p_cpu[n]).norm() / p_cpu[n].norm()).item() for n in p_cpu)
+    if not (loss_err <= CAPTION_TOL and param_err <= CAPTION_TOL):
+        raise AssertionError(f"caption 5 Adam steps card vs CPU: losses rel err {loss_err}, "
+                             f"parameters rel err {param_err}, over {CAPTION_TOL}")
+
+    # Resume: a run crashed after epoch 1 continues bit for bit.
+    rcfg = _caption_cfg("s2vt")  # dropout 0.1, vct's default
+    rng = np.random.RandomState(7)
+    x = rng.rand(8, CAPTION_T, 64, 64, 3).astype(np.float32)
+    y = _seeded_captions(torch, gen, 8, rcfg.max_caption_len).numpy()
+    straight = CaptionTrainer(dataclasses.replace(rcfg, epochs=2), vocab, seed=3)
+    s1, want = straight.fit(straight.init_state(), x, y, checkpoint_dir=str(tmp / "a"), log=False)
+    first = CaptionTrainer(dataclasses.replace(rcfg, epochs=1), vocab, seed=3)
+    first.fit(first.init_state(), x, y, checkpoint_dir=str(tmp / "b"), log=False)
+    again = CaptionTrainer(dataclasses.replace(rcfg, epochs=2), vocab, seed=5)
+    s2, got = again.fit(again.init_state(), x, y, checkpoint_dir=str(tmp / "b"), log=False)
+    unequal = [n for (n, a), (_, b) in zip(s1.model.state_dict().items(),
+                                            s2.model.state_dict().items()) if not torch.equal(a, b)]
+    if got != want or unequal or s1.step != s2.step:
+        raise AssertionError(f"caption resume: losses {got} vs {want}, unequal tensors "
+                             f"{unequal[:4]}, steps {s2.step} vs {s1.step}")
+    del straight, first, again, s1, s2
+
+    # The reference S2VT importer, on the card and on the CPU.
+    full = _caption_cfg("s2vt")
+    sd = _seeded_state_dict(torch, _reference_s2vt_keys(full.cnn_backbone, full.cnn_output_size,
+                                                        full.hidden_size, CAPTION_VOCAB), seed=21)
+    v = clips[:2]
+    t = caps[0][:2]
+    logps = {}
+    for dev in ("cuda", "cpu"):
+        m = port_reference_s2vt(build_captioner(full, CAPTION_VOCAB, device=dev), sd)
+        with torch.no_grad():
+            logps[dev] = m(v.to(dev), t.to(dev)).cpu()
+        del m
+    torch.cuda.synchronize()
+    _require_no_launches("caption training, resume and import", counters)
+    import_err = (logps["cuda"] - logps["cpu"]).abs().max().item()
+    torch.testing.assert_close(logps["cuda"], logps["cpu"], atol=CAPTION_TOL, rtol=CAPTION_TOL)
+    out = {"caption_train_step_ms": {"raw": step_ms, "feature_cache": feat_step_ms},
+           "batch": B, "T": CAPTION_T, "frame": CAPTION_HW,
+           "adam_5_steps_card_vs_cpu": {"losses": l_card, "loss_rel_err": loss_err,
+                                        "param_rel_err": param_err},
+           "resume_bit_equal": True, "resume_losses": got,
+           "port_reference_s2vt_logp_max_abs_err_card_vs_cpu": import_err, "gpu": gpu}
+    print(json.dumps(out), flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _caption_path(torch, gen, gpu) -> None:
+    """Phase 14: the five captioners served (``_caption_serve``), the CLI
+    for S2VT and the transformer, the S2VT train step, its card-vs-CPU
+    Adam steps, resume and the reference importer (``_caption_train``)."""
+    import tempfile
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    videos = torch.rand(CAPTION_CLIPS, CAPTION_T, CAPTION_HW, CAPTION_HW, 3, generator=gen).cuda()
+    served = {kind: _caption_serve(torch, gen, gpu, kind, videos) for kind in CAPTION_KINDS}
+    del videos
+    cpu_s = sum(s["cpu_s"] for s in served.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        bleu = {kind: _caption_cli(torch, kind, Path(tmp)) for kind in ("s2vt", "transformer")}
+        train = _caption_train(torch, gen, gpu, Path(tmp))
+    summary = {**{f"caption_{k}_clips_per_s": s[f"caption_{k}_clips_per_s"]
+                  for k, s in served.items()},
+               "caption_train_step_ms": train["caption_train_step_ms"], "cli_bleu": bleu,
+               "cpu_hold_s": cpu_s, "cpu_held_clips": CAPTION_CPU_CLIPS, "gpu": gpu}
+    print(json.dumps(summary))
+    print(f"caption phase: {time.perf_counter() - t0:.1f} s (the CPU's holds {cpu_s:.1f} s, "
+          f"on {CAPTION_CPU_CLIPS} of {CAPTION_CLIPS} clips)")
 
 
 def _bwd_timing(torch, gen, name, dims) -> dict:
@@ -2545,6 +2909,7 @@ def main(argv: list[str]) -> int:
     print(f"training path launches over both configurations {train_launches}")
     _resume_and_weights(torch, gpu)
     zoo = _zoo_path(torch, gen, gpu)
+    _caption_path(torch, gen, gpu)
     kernels = _kernel_timings(torch, gen, launches, errs, gpu, zoo["served"])
     kernels += _bwd_rows(torch, gen, train_launches, bwd_errs, zoo["trained"])
     print(json.dumps({"kernels": kernels, "gpu": gpu}))

@@ -268,3 +268,95 @@ def test_reference_videomamba_key_list_is_what_the_importer_consumes():
     sd = chip_smoke._seeded_state_dict(torch, chip_smoke._reference_videomamba_keys(cfg), seed=1)
     model = port_reference_videomamba(build_model(cfg, 4, device="cpu"), sd, cfg)
     assert torch.equal(model.layer_1.mixer.A_log, sd["layers.1.mixer.A_log"])
+
+
+# ---------------------------------------------------------------------------
+# the captioning phase
+
+
+class _Counted:
+    def __init__(self, launches=0):
+        self.launches = launches
+
+
+def test_caption_phase_demands_zero_launches_from_every_kernel():
+    """Captioning reaches no kernel: the phase reads every wrapper's counter
+    (serving's and training's, each a ``.launches`` the wrapper keeps) and
+    fails naming any that launched."""
+    counters = chip_smoke._all_counters()
+    assert set(counters) == (set(chip_smoke._serve_counters()) | set(chip_smoke._train_counters()))
+    assert {"pair_scores", "ssim_pair_scores", "normalize_frames", "selective_scan",
+            "selective_scan_bwd", "lstm_stack", "gru_scan_bwd"} <= set(counters)
+    assert all(isinstance(fn.launches, int) for fn in counters.values())
+    chip_smoke._require_no_launches("caption", {"a": _Counted(), "b": _Counted()})
+    with pytest.raises(AssertionError, match=r"caption s2vt.*'gru_scan': 2"):
+        chip_smoke._require_no_launches("caption s2vt", {"lstm_stack": _Counted(),
+                                                          "gru_scan": _Counted(2)})
+
+
+def test_caption_tie_rule(capsys):
+    """Equal rows pass without scoring; a row that differs passes only when
+    the CPU scores both sequences within the tolerance (both printed), and
+    fails beyond it."""
+    import torch
+
+    card = torch.tensor([[1, 5, 6, 2], [1, 7, 2, 0]])
+
+    def never():
+        raise AssertionError("scored equal rows")
+
+    assert chip_smoke._hold_tokens("beam", card, card.clone(), never) == 0
+    cpu = torch.tensor([[1, 5, 6, 2], [1, 8, 2, 0]])
+    tie = lambda: (torch.tensor([0.0, -3.00005]), torch.tensor([0.0, -3.0]))  # noqa: E731
+    assert chip_smoke._hold_tokens("beam", card, cpu, tie) == 1
+    out = capsys.readouterr().out
+    assert "row 1 ties" in out and "[1, 7, 2, 0]" in out and "[1, 8, 2, 0]" in out
+    apart = lambda: (torch.tensor([0.0, -3.001]), torch.tensor([0.0, -3.0]))  # noqa: E731
+    with pytest.raises(AssertionError, match="row 1 card"):
+        chip_smoke._hold_tokens("beam", card, cpu, apart)
+
+
+def test_caption_sequence_scores_are_the_beams():
+    """A sequence's CPU score sums its teacher-forced log-probs through its
+    first <end> (a beam's score; the <pad> after it costs 0), or through
+    the first position two greedy sequences part."""
+    import torch
+
+    seqs = torch.tensor([[4, 5, 2, 0], [4, 4, 4, 4]])
+    assert chip_smoke._first_end(torch, seqs).tolist() == [2, 3]
+    logp = torch.log_softmax(torch.randn(2, 4, 6, generator=torch.Generator().manual_seed(0)),
+                             dim=-1)
+
+    class Fixed(torch.nn.Module):
+        def forward(self, video, targets):
+            return logp
+
+    got = chip_smoke._sequence_scores(torch, Fixed(), None, seqs, torch.tensor([2, 1]))
+    want = [logp[0, 0, 4] + logp[0, 1, 5] + logp[0, 2, 2], logp[1, 0, 4] + logp[1, 1, 4]]
+    torch.testing.assert_close(got, torch.stack(want))
+
+
+def test_caption_stand_ins_are_laid_out_as_vct_lays_them():
+    """The phase's vocabulary has 10,000 ids with vct's specials; its seeded
+    captions are encode_caption rows: <start>, words, <end>, <pad>s."""
+    import torch
+
+    vocab = chip_smoke._caption_vocab()
+    assert len(vocab) == chip_smoke.CAPTION_VOCAB == 10_000
+    assert [vocab[t] for t in ("<pad>", "<start>", "<end>", "<unk>")] == [0, 1, 2, 3]
+    rows = chip_smoke._seeded_captions(torch, torch.Generator().manual_seed(0), 16, 30)
+    for row in rows.tolist():
+        end = row.index(2)
+        assert row[0] == 1 and 6 <= end <= 29 and set(row[end + 1:]) <= {0}
+        assert all(4 <= t < 10_000 for t in row[1:end])
+
+
+def test_caption_decode_modes_exit_with_the_roadmap_item(capsys):
+    """The CLI's modes that decode video files are not ported: they exit
+    non-zero naming ROADMAP Queue 1 item 3, with no fallback."""
+    from vct_torch.caption.__main__ import main
+
+    for argv in (["--caption_videos", "d", "--model", "m"], ["--video_dir", "d"],
+                 ["--annotations", "a.txt", "--synthetic"]):
+        assert main(argv) != 0
+        assert "ROADMAP Queue 1 item 3" in capsys.readouterr().err

@@ -252,10 +252,16 @@ def test_port_reference_lrcn_refuses_what_the_config_does_not_describe(case):
 
 
 def test_videomamba_and_s2vt_importers_name_the_roadmap():
-    """The S2VT importer waits for captioning and names its ROADMAP item;
-    the VideoMamba one is ported and refuses an LRCN's state_dict."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        port_reference_s2vt(None, {})
+    """Both importers are ported (the S2VT one with captioning, ROADMAP
+    Queue 1 item 6) and refuse an LRCN's state_dict, naming a tensor the
+    layout needs."""
+    from vct_torch.caption.train import build_captioner
+    from vct_torch.core.config import CaptionConfig
+
+    s2vt = build_captioner(CaptionConfig(cnn_backbone="resnet18", cnn_output_size=8,
+                                         hidden_size=8), 11, device="cpu")
+    with pytest.raises(KeyError, match="cnn.fc.weight"):
+        port_reference_s2vt(s2vt, _reference("gru", "all", "multiclass").state_dict())
     cfg_v, cfg_t = _vm_cfg("multiclass")
     with pytest.raises(KeyError, match="adapt.weight"):
         port_reference_videomamba(build_model(cfg_t.model, T, device="cpu"),

@@ -14,8 +14,11 @@ LSTM/GRU head, kernels ``lstm_stack`` / ``gru_stack`` and ``lstm_scan`` /
 ``gru_scan``; VideoMamba on ``selective_scan``; the scratch CNNs ``lrcn2``
 and ``td_cnn_lstm``), and the batched softmax serving entry points in
 ``vct_torch.serve.deployment``; training (``vct_torch.train``) with the
-backward kernels; and the frame normalize kernel ``normalize_frames``,
-which no path calls, as in ``vct``.
+backward kernels; captioning (``vct_torch.caption``: the S2VT v2 and 1s2vt,
+transformer and v1 LSTM/GRU captioners, on-device beam search, the caption
+trainer and ``python -m vct_torch.caption``), on plain PyTorch as in
+``vct``, no kernel on its path; and the frame normalize kernel
+``normalize_frames``, which no path calls, as in ``vct``.
 """
 
 from vct_torch.device import resolve_device

@@ -1,7 +1,8 @@
 """Load a ``vct`` (Flax) variables tree into the port's modules.
 
 The inverse of ``vct/models/backbones/port.py``, extended to every model
-family (LRCN, VideoMamba, LRCN2, TimeDistributedCNNLSTM).
+family (LRCN, VideoMamba, LRCN2, TimeDistributedCNNLSTM) and every
+captioner (S2VT, 1s2vt, transformer, v1 LSTM/GRU).
 The port's submodules carry the Flax module names (``cnn_backbone.layer1_0
 .conv1``, ``adapt.adapt1``, ``mamba_0.mixer.in_proj``, ``head.fc`` ...), so
 each torch tensor's Flax leaf follows from its module path and type:
@@ -12,6 +13,11 @@ Flax                                   torch
 conv ``kernel`` (kH, kW, I, O)         Conv2d ``weight`` (O, I, kH, kW)
 (depthwise: (kH, kW, 1, C))            (depthwise: (C, 1, kH, kW))
 Dense ``kernel`` (in, out)             Linear ``weight`` (out, in)
+attention ``query/key/value`` kernel   Linear ``weight`` (heads*head_dim, in),
+(in, heads, head_dim), bias            bias (heads*head_dim,): the module's
+(heads, head_dim); ``out`` kernel      ``flax_kernel_shape`` / ``flax_bias_shape``
+(heads, head_dim, out)                 say Flax's; ``out``: (out, heads*head_dim)
+Embed ``embedding`` (V, F)             Embedding ``weight`` (V, F)
 LayerNorm ``scale``                    LayerNorm ``weight``
 BatchNorm ``{scale,bias}``             BatchNorm2d ``weight``, ``bias``
 ``batch_stats .../{mean,var}``         ``running_mean``, ``running_var``
@@ -61,6 +67,17 @@ class _Leaves:
         return self.leaves[path]
 
 
+def _dense_general(path: str, shape, rows):
+    """A Flax ``DenseGeneral`` leaf of ``shape`` -> the Linear's layout: the
+    kernel flattened to (in, out) and transposed (``rows`` = in), the bias
+    flattened. Any other shape raises ``ValueError``."""
+    def transform(w):
+        if tuple(w.shape) != tuple(shape):
+            raise ValueError(f"{path}: shape {tuple(w.shape)} != expected {tuple(shape)}")
+        return w.reshape(-1) if rows is None else np.transpose(w.reshape(rows, -1))
+    return transform
+
+
 def _sources(mod: nn.Module, mname: str):
     """(torch tensor name, flax leaf path, transform) for each of ``mod``'s
     own tensors."""
@@ -76,9 +93,16 @@ def _sources(mod: nn.Module, mname: str):
         if mod.bias is not None:
             yield "bias", f"{parent}/conv_bias", None
     elif isinstance(mod, nn.Linear):
-        yield "weight", f"{p}/kernel", np.transpose
-        if mod.bias is not None:
-            yield "bias", f"{p}/bias", None
+        kernel = getattr(mod, "flax_kernel_shape", None)
+        if kernel is None:
+            yield "weight", f"{p}/kernel", np.transpose
+            if mod.bias is not None:
+                yield "bias", f"{p}/bias", None
+        else:  # a DenseGeneral: the attention's heads are axes of their own
+            yield "weight", f"{p}/kernel", _dense_general(p, kernel, mod.in_features)
+            yield "bias", f"{p}/bias", _dense_general(p, mod.flax_bias_shape, None)
+    elif isinstance(mod, nn.Embedding):
+        yield "weight", f"{p}/embedding", None
     elif isinstance(mod, nn.LayerNorm):
         yield "weight", f"{p}/scale", None
         yield "bias", f"{p}/bias", None

@@ -34,8 +34,9 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
 
     The scheme follows the reference's initializers: LeCun-normal conv and
     linear weights, zero biases, unit norms, BN statistics (0, 1),
-    standard-normal ``A_log`` / ``D``, and LSTM/GRU weights and biases
-    U(-1/sqrt(H), 1/sqrt(H)). The same seed gives the same weights on any
+    standard-normal ``A_log`` / ``D`` and embeddings (torch's
+    ``nn.Embedding``), and LSTM/GRU weights and biases U(-1/sqrt(H),
+    1/sqrt(H)). The same seed gives the same weights on any
     device.
     """
     gen = torch.Generator(device="cpu").manual_seed(seed)
@@ -61,7 +62,10 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
         elif isinstance(mod, ParallelMamba):
             values[id(mod.A_log)] = _normal(mod.A_log.shape, 1.0, gen)
             values[id(mod.D)] = _normal(mod.D.shape, 1.0, gen)
-        elif isinstance(mod, (LSTM, GRU)):
+        elif isinstance(mod, nn.Embedding):
+            values[id(mod.weight)] = _normal(mod.weight.shape, 1.0, gen)
+        elif isinstance(mod, (LSTM, GRU)) or getattr(mod, "recurrent_params", False):
+            # The captioners' step cells mark their own recurrence weights.
             k = mod.hidden_size ** -0.5
             for p in mod.parameters(recurse=False):
                 values[id(p)] = torch.rand(p.shape, generator=gen) * (2 * k) - k

@@ -1,4 +1,4 @@
-"""A whole reference-LRCN or VideoMamba torch state_dict into the port's
+"""A whole reference-LRCN, VideoMamba or S2VT torch state_dict into the port's
 model: the port of ``vct/models/lrcn_port.py``.
 
 The reference checkpoints whole torch modules (``train_eval.py:53``
@@ -26,8 +26,9 @@ does not match the model; a tensor the layout needs and the state_dict
 lacks raises ``KeyError``. Nothing is written unless everything maps.
 ``port_reference_videomamba`` does the same for a reference VideoMamba
 (``cnn_backbone``, ``adapt``, ``layers.{i}.norm/mixer`` -> ``layer_{i}``,
-``norm_f``, ``classifier``); ``port_reference_s2vt`` waits for captioning
-(ROADMAP Queue 1 item 6).
+``norm_f``, ``classifier``), and ``port_reference_s2vt`` for a reference
+S2VT captioner (``cnn.model`` the backbone, ``cnn.fc``, ``encoder.*``,
+``decoder.*``).
 """
 
 from __future__ import annotations
@@ -119,13 +120,15 @@ def _check(model: nn.Module, staged: Dict[str, np.ndarray], sd: _ConsumeTracker,
 
 
 def _finish(model: nn.Module, staged: Dict[str, np.ndarray], sd: _ConsumeTracker,
-            backbone_name: str) -> nn.Module:
-    """Check the staged tensors and the backbone region, then write: the
+            backbone_name: str, ours: str = "cnn_backbone",
+            theirs: str = "cnn_backbone") -> nn.Module:
+    """Check the staged tensors and the backbone region (``theirs`` in the
+    state_dict, the submodule ``ours`` in the model), then write: the
     backbone porter checks and copies its part, and only after it the rest
     is copied."""
-    backbone_sd = sd.consume_region("cnn_backbone")
-    target = _check(model, staged, sd, skip="cnn_backbone.")
-    load_torch_backbone(backbone_name, model.cnn_backbone, backbone_sd)
+    backbone_sd = sd.consume_region(theirs)
+    target = _check(model, staged, sd, skip=ours + ".")
+    load_torch_backbone(backbone_name, model.get_submodule(ours), backbone_sd)
     with torch.no_grad():
         for name, value in staged.items():
             target[name].copy_(torch.from_numpy(np.array(value)).to(target[name].dtype))
@@ -187,6 +190,50 @@ def port_reference_videomamba(model: nn.Module, state_dict, model_cfg) -> nn.Mod
     return _finish(model, staged, sd, model_cfg.cnn_backbone)
 
 
-def port_reference_s2vt(model, state_dict):
-    raise NotImplementedError("porting a reference S2VT captioner is not in vct_torch yet "
-                              "(ROADMAP Queue 1 item 6, with captioning)")
+def _backbone_family(keys) -> str:
+    """The torchvision family of a backbone state_dict, from its keys (the
+    reference's PretrainedCNN offers resnet50, vgg16, inception_v3 and
+    mobilenet_v2); the ResNets share one porter, so only the block tells
+    resnet50 from resnet18."""
+    if any(k.startswith("features.denseblock") for k in keys):
+        return "densenet121"
+    if any(k.startswith("Mixed_") for k in keys):
+        return "inception_v3"
+    if "features.18.0.weight" in keys:
+        return "mobilenet_v2"
+    if "features.0.weight" in keys:
+        return "vgg16"
+    return "resnet50" if "layer1.0.conv3.weight" in keys else "resnet18"
+
+
+def port_reference_s2vt(model: nn.Module, state_dict) -> nn.Module:
+    """Port a reference VideoAnalysisModel state_dict
+    (``s2vt/beam_search.py:362-382``) into the port's v2 ``S2VTModel``
+    ``model`` in place (``vct_torch.caption.models``, one GRU layer).
+
+    Layout consumed: ``cnn.model.*`` (the torchvision backbone with its
+    discarded fc; the family inferred from its keys), ``cnn.fc.*`` (the
+    projection), ``encoder.embedding/gru``,
+    ``decoder.embedding/attention.attn/gru/out``. The reference's
+    ``cnn.feature_extractor.*`` entries duplicate ``cnn.model.*``
+    (PretrainedCNN registers the same children twice, beam_search.py:
+    265-267) and are dropped. Returns the model; raises ``KeyError`` /
+    ``ValueError`` on mismatches, having written nothing."""
+    sd = _ConsumeTracker({k: v for k, v in torch_tensor_dict(state_dict).items()
+                          if not k.startswith("cnn.feature_extractor.")})
+    family = _backbone_family([k[len("cnn.model."):] for k in sd.data
+                               if k.startswith("cnn.model.")])
+    staged: Dict[str, np.ndarray] = {}
+    _copy(staged, sd, "cnn.fc", "cnn.fc")
+    _copy(staged, sd, "encoder.embedding", "encoder.embedding")
+    for kind in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+        v = sd[f"encoder.gru.{kind}_l0"]
+        staged[f"encoder.gru.{kind}_l0"] = np.transpose(v) if kind.startswith("weight") else v
+    staged["decoder.embedding.weight"] = sd["decoder.embedding.weight"]
+    _copy(staged, sd, "decoder.attention.attn", "decoder.attention.attn")
+    for ours, kind in (("gru_w_ih", "weight_ih"), ("gru_w_hh", "weight_hh"),
+                       ("gru_b_ih", "bias_ih"), ("gru_b_hh", "bias_hh")):
+        v = sd[f"decoder.gru.{kind}_l0"]
+        staged[f"decoder.{ours}"] = np.transpose(v) if kind.startswith("weight") else v
+    _copy(staged, sd, "decoder.out", "decoder.out")
+    return _finish(model, staged, sd, family, ours="cnn.cnn", theirs="cnn.model")

@@ -37,7 +37,7 @@ from torch import nn
 from vct_torch.core.config import Config
 
 __all__ = ["FRAMEWORK", "load_checkpoint", "load_train_state", "load_weights",
-           "save_checkpoint", "save_train_state"]
+           "restore_train_state", "save_checkpoint", "save_train_state", "train_state_payload"]
 
 FRAMEWORK = "vct_torch"
 _MANIFEST = "manifest.json"
@@ -64,8 +64,9 @@ def _read_manifest(path: str, name: str) -> dict:
         manifest = json.load(f)
     written_by = manifest.get("framework")
     if written_by != FRAMEWORK:
+        # vct's model manifests say "vct"; its train and caption manifests say nothing.
         hint = ("; converting a vct (Orbax) checkpoint to vct_torch is not ported yet "
-                "(ROADMAP Queue 1 item 4)" if written_by == "vct" else "")
+                "(ROADMAP Queue 1 item 4)" if written_by in ("vct", None) else "")
         raise ValueError(f"{path} was written by {written_by!r}, not {FRAMEWORK!r}{hint}")
     return manifest
 
@@ -116,6 +117,37 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], Config, List[st
     return state_dict, Config.from_dict(manifest["config"]), manifest["class_names"], manifest
 
 
+def train_state_payload(state) -> dict:
+    """What ``train_state.pt`` holds of a train state (a ``TrainState``:
+    model, optimizer, step, dropout generator): the model's and the
+    optimizer's state_dicts, the step and the generator's state and device
+    type."""
+    gen = state.generator
+    return {
+        "model": state.model.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "step": int(state.step),
+        "generator": None if gen is None else {"device": gen.device.type,
+                                               "state": gen.get_state()},
+    }
+
+
+def restore_train_state(saved: dict, state) -> None:
+    """Load ``train_state_payload``'s dict into ``state`` in place, every
+    model tensor checked (``load_weights``). A generator saved on another
+    device type cannot continue there: it warns and keeps the fresh one."""
+    load_weights(state.model, saved["model"], "train state")
+    state.optimizer.load_state_dict(saved["optimizer"])
+    state.step = int(saved["step"])
+    gen = saved["generator"]
+    if state.generator is not None and gen is not None:
+        if gen["device"] == state.generator.device.type:
+            state.generator.set_state(gen["state"])
+        else:
+            print(f"warning: the dropout generator was saved on {gen['device']}; the "
+                  f"{state.generator.device.type} generator keeps its seed")
+
+
 def save_train_state(path: str, state, cfg: Config, class_names: List[str], epoch: int,
                      extra: Optional[dict] = None) -> str:
     """Save the full train state (``vct_torch.train.engine.TrainState``)
@@ -124,14 +156,7 @@ def save_train_state(path: str, state, cfg: Config, class_names: List[str], epoc
     history), so a resumed run replays them."""
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
-    gen = state.generator
-    _atomic_save({
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
-        "step": int(state.step),
-        "generator": None if gen is None else {"device": gen.device.type,
-                                               "state": gen.get_state()},
-    }, os.path.join(path, _TRAIN_STATE))
+    _atomic_save(train_state_payload(state), os.path.join(path, _TRAIN_STATE))
     _atomic_json({"framework": FRAMEWORK, "epoch": epoch, "config": cfg.to_dict(),
                   "class_names": list(class_names), "extra": extra or {}},
                  os.path.join(path, _TRAIN_MANIFEST))
@@ -154,15 +179,5 @@ def load_train_state(path: str, state) -> Tuple[object, int, dict]:
         print(f"warning: {path} has a train manifest but no {_TRAIN_STATE}; "
               "starting from epoch 0")
         return state, 0, {}
-    saved = torch.load(state_file, map_location="cpu", weights_only=True)
-    load_weights(state.model, saved["model"], "train state")
-    state.optimizer.load_state_dict(saved["optimizer"])
-    state.step = int(saved["step"])
-    gen = saved["generator"]
-    if state.generator is not None and gen is not None:
-        if gen["device"] == state.generator.device.type:
-            state.generator.set_state(gen["state"])
-        else:
-            print(f"warning: the dropout generator was saved on {gen['device']}; the "
-                  f"{state.generator.device.type} generator keeps its seed")
+    restore_train_state(torch.load(state_file, map_location="cpu", weights_only=True), state)
     return state, int(manifest["epoch"]), manifest.get("extra", {})

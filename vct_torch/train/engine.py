@@ -78,7 +78,8 @@ from vct_torch.train.metrics import (
 )
 from vct_torch.utils.profiling import StepTimer, device_trace, write_history
 
-__all__ = ["TrainState", "Trainer", "compute_class_weights", "count_parameters"]
+__all__ = ["TrainState", "Trainer", "clip_by_global_norm", "compute_class_weights",
+           "count_parameters"]
 
 FROZEN_KEY = "cnn_backbone"
 # Parameters the model declares and never reads (the Mamba mixer's D, kept
@@ -100,6 +101,19 @@ def compute_class_weights(y: np.ndarray, num_classes: int, classif_mode: str):
     pos = y.sum(axis=0).astype(np.float64)
     neg = len(y) - pos
     return (neg / np.maximum(pos, 1.0)).astype(np.float32)
+
+
+def clip_by_global_norm(params, max_norm: float) -> None:
+    """optax.clip_by_global_norm over the gradients of ``params`` (the
+    trained ones), in place: scaled by ``max_norm / norm`` where the global
+    norm reaches ``max_norm``."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    for g in grads:
+        g.mul_(scale)
 
 
 def _prefixes(freeze_until: str) -> List[str]:
@@ -239,15 +253,7 @@ class Trainer:
         return self.model(xb, from_features=True) if self._feature_mode else self.model(xb)
 
     def _clip_gradients(self) -> None:
-        """optax.clip_by_global_norm over the trained parameters."""
-        max_norm = self.cfg.train.grad_clip
-        grads = [p.grad for p in self._trained if p.grad is not None]
-        if not grads:
-            return
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-        for g in grads:
-            g.mul_(scale)
+        clip_by_global_norm(self._trained, self.cfg.train.grad_clip)
 
     def _train_step(self, state: TrainState, xb, yb, mask):
         """One step: forward in train mode, loss, backward, clip, update.
