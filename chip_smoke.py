@@ -185,7 +185,28 @@ line):
     after epoch 1 must be bit-equal to the uninterrupted one; a seeded
     reference S2VT state_dict goes through ``port_reference_s2vt`` on the
     card and on the CPU, log-probs within 1e-4; launches 0 throughout;
-15. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
+15. files — video files in, labels out, for the deployed LRCN at full width
+    (resnet50 in bf16, 3 Mamba blocks, T=60, 80x80, scan_impl "pallas"): a
+    line of what the host decodes with (cv2, h5py, the ffmpeg libraries and
+    headers, the native decoder); 64 seeded videos of 120 frames in 2 class
+    directories and 8 served ones, written as uncompressed BGR24 AVI files
+    (``_write_avi``), decoded back bit-equal to the seeded frames (the decode
+    line says which decoder ran, or that none could and seeded frames
+    stand in) and ingested by ``build_clipcache`` (host SAD to T), the
+    cache held equal to the seeded clips sampled in process;
+    ``python -m vct_torch.train --data.stream true --data.cache_format
+    clipcache`` for one epoch at B=32 (K3 forward and backward launches
+    counted), its loss and weights bit-equal to an in-memory ``fit`` on the
+    same uint8 clips, then the streamed and in-memory fits timed in turns
+    (``streamed_train_clips_per_s``, ``memory_train_clips_per_s``) with the
+    host seconds a step spent waiting on the cache (``loader_s_per_step``);
+    ``python -m vct_torch.serve.deployment`` on the served files with the
+    trained checkpoint, ``--device_sampling`` sad and ssim, host sad, and
+    ``--post`` to a local server: launches counted around each run (K1 or
+    K4 once a video longer than T, K3 3), probabilities within 1e-5 of
+    ``classify_videos`` in process, seconds a video end to end beside
+    ``classify_videos`` alone;
+16. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
     launches, error, time, plain time, bound (K3 forward and backward also at
     the VideoMamba step, B=32 T=16 D=2048 N=16, ``"config": "videomamba"``,
     launches from phase 13) and, for K2/K5, the design,
@@ -2399,6 +2420,459 @@ def _caption_path(torch, gen, gpu) -> None:
           f"on {CAPTION_CPU_CLIPS} of {CAPTION_CLIPS} clips)")
 
 
+# The files phase: the deployed LRCN (DEPLOYED, resnet50 in bf16, T=60,
+# 80x80) trained from a directory of video files and classifying one. The
+# seeded videos are written as uncompressed BGR24 AVI files (standard library
+# only), which every ffmpeg-based reader decodes to the exact pixels.
+FILES_CLIPS, FILES_RAW, FILES_CLASSES = 64, 120, 2
+FILES_BATCH = 32
+# Decoded lengths of the served videos: a short one (cycled up to T) and
+# others bucketed and selected on the device.
+FILES_SERVED = [50, 61, 90, 120, 75, 100, 64, 120]
+# The CLI against classify_videos in process on the same clips.
+FILES_TOL = 1e-5
+FILES_TIMED_EPOCHS = 3
+FFMPEG_LIBS = ("avcodec", "avformat", "swscale")
+FFMPEG_HEADERS = ("libavcodec/avcodec.h", "libavformat/avformat.h")
+INCLUDE_DIRS = ("/usr/include", "/usr/include/x86_64-linux-gnu", "/usr/local/include")
+
+
+def _write_avi(path: Path, frames_rgb: np.ndarray, fps: int = 25) -> None:
+    """(n, H, W, 3) uint8 RGB frames as an uncompressed BGR24 AVI file:
+    RIFF 'AVI ' with one video stream of top-down DIB frames (a negative
+    height; '00db' chunks, rows padded to 4 bytes) and an idx1 index.
+    Top-down, because cv2 5.0's FFmpeg reader crashed on the bottom-up
+    layout (a positive height) that the system's libavformat reads."""
+    import struct
+
+    n, h, w, _ = frames_rgb.shape
+    row = (3 * w + 3) & ~3
+    size = row * h
+    frames = np.zeros((n, h, row), np.uint8)
+    frames[:, :, :3 * w] = frames_rgb[..., ::-1].reshape(n, h, 3 * w)
+
+    def chunk(fourcc: bytes, data: bytes) -> bytes:
+        return fourcc + struct.pack("<I", len(data)) + data + b"\0" * (len(data) & 1)
+
+    def lst(kind: bytes, data: bytes) -> bytes:
+        return chunk(b"LIST", kind + data)
+
+    avih = struct.pack("<14I", 1_000_000 // fps, size * fps, 0, 0x10, n, 0, 1, size, w, h,
+                       0, 0, 0, 0)
+    strh = struct.pack("<4s4sIHHIIIIIIII4h", b"vids", b"DIB ", 0, 0, 0, 0, 1, fps, 0, n, size,
+                       0xFFFFFFFF, 0, 0, 0, w, h)
+    strf = struct.pack("<IiiHHIIiiII", 40, w, -h, 1, 24, 0, size, 0, 0, 0, 0)
+    hdrl = lst(b"hdrl", chunk(b"avih", avih)
+               + lst(b"strl", chunk(b"strh", strh) + chunk(b"strf", strf)))
+    movi = b"".join(chunk(b"00db", f.tobytes()) for f in frames)
+    idx1 = b"".join(struct.pack("<4sIII", b"00db", 0x10, 4 + i * (8 + size), size)
+                    for i in range(n))
+    body = b"AVI " + hdrl + lst(b"movi", movi) + chunk(b"idx1", idx1)
+    path.write_bytes(b"RIFF" + struct.pack("<I", len(body)) + body)
+
+
+def _host_decoders() -> dict:
+    """What this host can decode with: cv2 and h5py (imported), the ffmpeg
+    libraries (``ldconfig -p``) and headers, and the native decoder
+    (``vct_torch.data.videodec.is_available()``), printed on one line."""
+    import importlib
+
+    from vct_torch.data import videodec
+
+    found = {}
+    for name in ("cv2", "h5py"):
+        try:
+            found[name] = importlib.import_module(name).__version__
+        except ImportError:
+            found[name] = None
+    ldconfig = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True).stdout
+    found["ldconfig"] = {lib: f"lib{lib}." in ldconfig for lib in FFMPEG_LIBS}
+    found["headers"] = {hdr: any(Path(d, hdr).is_file() for d in INCLUDE_DIRS)
+                        for hdr in FFMPEG_HEADERS}
+    found["native_decoder"] = videodec.is_available()
+    yes = lambda v: "yes" if v else "no"  # noqa: E731
+    print(f"host: cv2 {found['cv2'] or 'no'}; h5py {found['h5py'] or 'no'}; ldconfig "
+          + ", ".join(f"lib{k} {yes(v)}" for k, v in found["ldconfig"].items()) + "; headers "
+          + ", ".join(f"{k} {yes(v)}" for k, v in found["headers"].items())
+          + f"; native decoder (vct_torch/native/videodec.cpp) "
+          + ("builds" if found["native_decoder"] else "unavailable"), flush=True)
+    return found
+
+
+def _cli_results(text: str) -> list:
+    """The JSON list ``classify_and_display`` prints."""
+    lines = text.splitlines()
+    start = lines.index("[")
+    return json.loads("\n".join(lines[start:lines.index("]", start) + 1]))
+
+
+def _hold_cli_probs(label: str, results: list, names: list, class_names: list,
+                    want: np.ndarray) -> float:
+    """The CLI's probabilities (sorted per video with their labels) against
+    ``want`` (N, classes) in class order; returns the largest difference."""
+    _check_served(results, names)
+    got = np.zeros_like(want)
+    for i, r in enumerate(results):
+        for lab, score in zip(r["labels"], r["scores"]):
+            got[i, class_names.index(lab)] = score
+    err = float(np.abs(got - want).max())
+    if not err <= FILES_TOL:
+        raise AssertionError(f"{label}: CLI probabilities differ from classify_videos by {err}")
+    return err
+
+
+class _Backend:
+    """A local HTTP server that records the JSON bodies POSTed to it and
+    answers 200."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.bodies = []
+        bodies = self.bodies
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                bodies.append(json.loads(self.rfile.read(int(self.headers["Content-Length"]))))
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/classify"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=30)
+
+
+def _timed_loader(loader, waits: list):
+    """``loader`` whose epochs record, in ``waits``, the host seconds each
+    batch took to come out of it."""
+    epoch = loader.epoch
+
+    def timed(rng=None):
+        it = epoch(rng)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            waits.append(time.perf_counter() - t0)
+            yield batch
+
+    loader.epoch = timed
+    return loader
+
+
+def _files_ingest(root: Path, found: dict) -> tuple:
+    """Write the seeded dataset and served videos as AVI files, hold the
+    decode against the seeded frames and build the clip cache. Returns
+    (the train CLI's argv, its Config, the served videos, decode ms a video
+    (None where nothing decodes), the cache's build seconds)."""
+    from vct_torch.core.config import Config
+    from vct_torch.data import video
+    from vct_torch.data.clipcache import write_clipcache
+    from vct_torch.data.ingest import build_clipcache
+    from vct_torch.data.loaders import ClipCacheMapLoader
+    from vct_torch.data.samplers import sample_frames
+
+    videos = _synthetic_videos([FILES_RAW] * FILES_CLIPS, seed=150)
+    paths = []
+    for i, frames in enumerate(videos):
+        path = root / "data" / f"class_{i % FILES_CLASSES}" / f"v{i:02d}.avi"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        _write_avi(path, frames)
+        paths.append(path)
+    served = _synthetic_videos(FILES_SERVED, seed=151)
+    (root / "serve").mkdir()
+    for i, frames in enumerate(served):
+        _write_avi(root / "serve" / f"@user{i}_video_{1500 + i}.avi", frames)
+    decoder = "native" if found["native_decoder"] else "cv2" if found["cv2"] else None
+    over = {"data.dataset_path": str(root / "data"),
+            "data.processed_data_path": str(root / "cache"), "data.cache_format": "clipcache",
+            "data.stream": "true", "data.sequence_length": str(T), "data.img_height": str(H),
+            "data.img_width": str(W), "data.sampling_method": "sad",
+            "data.decoder": decoder or "cv2", "model.num_classes": str(FILES_CLASSES),
+            "model.compute_dtype": "bfloat16", "train.epochs": "1",
+            "train.batch_size": str(FILES_BATCH),
+            **{f"model.{k}": str(v) for k, v in DEPLOYED.items()}}
+    cfg = Config().replace(**over)
+    decode_ms = None
+    if decoder is None:
+        print("decode: unavailable on this host (cv2: no, libavcodec: "
+              f"{'yes' if found['ldconfig']['avcodec'] else 'no'})")
+        print("decode: replaced by seeded frames (write_clipcache of the host-sampled "
+              "seeded clips; the serving CLI's decode_video reads the seeded frames)")
+    else:
+        t0 = time.perf_counter()
+        for path, frames in zip(paths, videos):
+            got = video.decode_video(str(path), H, W, decoder=decoder)
+            if not np.array_equal(np.stack(got), frames):
+                raise AssertionError(f"decode ({decoder}) of {path.name} is not the seeded frames")
+        decode_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+        print(f"decode: {decoder} (vct_torch.data.video.decode_video) ran on all {len(paths)} "
+              f"files, {FILES_RAW} frames of {H}x{W} each, bit-equal to the seeded frames; "
+              f"{decode_ms:.3f} ms a video")
+    want = np.stack([np.stack(sample_frames(list(v), T, "sad")) for v in videos])
+    labels = np.arange(FILES_CLIPS) % FILES_CLASSES
+    order = np.argsort([f"class_{i % FILES_CLASSES}/v{i:02d}" for i in range(FILES_CLIPS)],
+                       kind="stable")
+    t0 = time.perf_counter()
+    if decoder is None:
+        Path(cfg.data.processed_data_path).mkdir(parents=True)
+        write_clipcache(cfg.data.data_file, want[order], labels[order])
+        np.save(cfg.data.classes_file, np.asarray([f"class_{c}" for c in range(FILES_CLASSES)]))
+    else:
+        build_clipcache(cfg)
+    build_s = time.perf_counter() - t0
+    cache = ClipCacheMapLoader(cfg.data.data_file, FILES_BATCH)
+    if not (np.array_equal(np.asarray(cache._clips), want[order])
+            and np.array_equal(cache.labels, labels[order])):
+        raise AssertionError("the clip cache does not hold the host-sampled seeded clips")
+    cache.close()
+    print(f"ingest: {FILES_CLIPS} clips of {FILES_RAW} frames, {FILES_CLASSES} classes, SAD "
+          f"to T={T} on the host, into {Path(cfg.data.data_file).name} in {build_s:.2f} s; "
+          "clips and labels equal to the seeded clips sampled in process")
+    argv = [a for k, v in over.items() for a in (f"--{k}", v)]
+    return argv, cfg, served, decode_ms, build_s
+
+
+def _files_train(torch, argv: list, cfg, root: Path) -> dict:
+    """``python -m vct_torch.train --data.stream true`` for one epoch from
+    the clip cache, the kernels' launches read around exactly that run; its
+    epoch loss and trained weights held bit-equal to an in-memory ``fit`` on
+    the same uint8 clips; then the streamed and in-memory fits timed in turns
+    (stream, memory, memory, stream) with the host seconds each batch took
+    to come out of the cache."""
+    import contextlib
+    import io
+
+    from vct_torch.data import loaders
+    from vct_torch.train.__main__ import main as train_main
+    from vct_torch.train.checkpoint import load_checkpoint
+    from vct_torch.train.engine import Trainer
+
+    waits = []
+    real_open = loaders.open_cache_loader
+
+    def opened(*args, **kwargs):
+        waits.append([])
+        return _timed_loader(real_open(*args, **kwargs), waits[-1])
+
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), mock.patch.object(loaders, "open_cache_loader", opened):
+        rc = train_main(argv + ["--train.model_path", str(root / "ck"),
+                                "--train.history_path", str(root / "history.json")])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    text = out.getvalue()
+    print("\n".join(f"  | {line}" for line in text.splitlines()))
+    n_test = int(round(FILES_CLIPS * cfg.data.val_fraction))
+    n_train = FILES_CLIPS - n_test
+    steps = -(-n_train // FILES_BATCH)
+    want = _expected_train_launches(DEPLOYED, steps + -(-n_test // FILES_BATCH), steps)
+    print(f"streamed train CLI: rc {rc}, {cli_s:.2f} s; launches {_nonzero(launches)} "
+          f"(expected {_nonzero(want)})")
+    if rc != 0 or "Model saved to" not in text or launches != want:
+        raise AssertionError(f"streamed train CLI: rc {rc}, launches {launches} != {want}")
+    streamed_loss = json.loads((root / "history.json").read_text())["train_loss"]
+    trained, _, class_names, _ = load_checkpoint(str(root / "ck"))
+
+    train_idx, _ = loaders.split_indices(FILES_CLIPS, cfg.data.val_fraction,
+                                         cfg.data.split_seed)
+    cache = loaders.ClipCacheMapLoader(cfg.data.data_file, FILES_BATCH, train_idx)
+    x, y = np.asarray(cache._clips)[train_idx], cache.labels
+    cache.close()
+    trainer = Trainer(cfg, class_names)
+    state, run = trainer.fit(trainer.init_state(), loaders.ArrayLoader(x, y, FILES_BATCH),
+                             log=False)
+    got = state.model.state_dict()
+    unequal = [k for k, v in trained.items() if not torch.equal(v.to(got[k].device), got[k])]
+    print(f"streamed vs in-memory fit on the same uint8 batches: epoch loss "
+          f"{streamed_loss} vs {run.epoch_losses}, {len(trained) - len(unequal)} of "
+          f"{len(trained)} tensors bit-equal")
+    if run.epoch_losses != streamed_loss or unequal:
+        raise AssertionError(f"streamed fit differs from the in-memory fit: {unequal[:5]}")
+    del trainer, state
+
+    timed_cfg = cfg.replace(**{"train.epochs": str(FILES_TIMED_EPOCHS)})
+    trainer = Trainer(timed_cfg, class_names)
+    state = trainer.init_state()
+    rows = {"stream": [], "memory": []}
+    stream_waits = []
+    for kind in ("stream", "memory", "memory", "stream"):
+        if kind == "stream":
+            stream_waits.append([])
+            data = _timed_loader(loaders.open_cache_loader(cfg, train_idx), stream_waits[-1])
+        else:
+            data = loaders.ArrayLoader(x, y, FILES_BATCH)
+        state, run = trainer.fit(state, data, log=False)
+        rows[kind].append(FILES_TIMED_EPOCHS * n_train / run.training_duration)
+    timed_steps = FILES_TIMED_EPOCHS * steps
+    loader_s = [sum(w) / timed_steps for w in stream_waits]
+    step_s = [FILES_TIMED_EPOCHS * n_train / r / timed_steps for r in rows["stream"]]
+    del trainer, state
+    torch.cuda.empty_cache()
+    feed = _feed_breakdown(torch, cfg, train_idx, x)
+    print(f"streamed train: {rows['stream']} clips/s against {rows['memory']} from memory; "
+          f"the cache's batches {loader_s} s a step; one batch's feed (ms, best of 5) {feed}")
+    return {"streamed_train_clips_per_s": rows["stream"],
+            "memory_train_clips_per_s": rows["memory"],
+            "loader_s_per_step": loader_s, "streamed_step_s": step_s,
+            "cli_loader_s_per_step": sum(waits[0]) / steps, "train_cli_s": cli_s,
+            "train_launches": _nonzero(launches), "feed_ms": feed}
+
+
+def _feed_breakdown(torch, cfg, train_idx, x) -> dict:
+    """One B=32 batch's host feed, ms (best of 5): the gather from the clip
+    cache's memory map (a fresh map, as each fit opens one) and from the
+    same clips in RAM, and its copy to the card from pageable and from
+    pinned memory."""
+    from vct_torch.data.loaders import ClipCacheMapLoader
+
+    idx = np.random.RandomState(0).permutation(len(train_idx))[:FILES_BATCH]
+
+    def best(fn):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+
+    def map_gather():
+        cache = ClipCacheMapLoader(cfg.data.data_file, FILES_BATCH, train_idx)
+        np.asarray(cache._clips[cache.indices[idx]])
+
+    batch = torch.from_numpy(x[idx])
+    pinned = batch.pin_memory()
+    return {"gather_map_ms": best(map_gather), "gather_ram_ms": best(lambda: x[idx]),
+            "h2d_pageable_ms": best(lambda: batch.to("cuda")),
+            "h2d_pinned_ms": best(lambda: pinned.to("cuda", non_blocking=True))}
+
+
+def _files_serve(torch, root: Path, served: list, decodes: bool) -> dict:
+    """``python -m vct_torch.serve.deployment`` on the served AVI files with
+    the streamed run's checkpoint: ``--device_sampling`` with sad and ssim,
+    host sad (where something decodes) and device sad with ``--post`` to a
+    local server; launches read around each run, probabilities held to
+    ``classify_videos`` in process on the same clips."""
+    import contextlib
+    import io
+
+    from vct_torch.data import video
+    from vct_torch.data.samplers import sample_frames
+    from vct_torch.serve import deployment
+
+    names = sorted(p.name for p in (root / "serve").iterdir())
+    t0 = time.perf_counter()
+    model, class_names, _ = deployment.load_model(str(root / "ck"))
+    load_s = time.perf_counter() - t0
+    host = np.stack([np.stack(sample_frames(list(v), T, "sad")) for v in served])
+    host = host.astype(np.float32) / 255.0
+    reference = {"sad": deployment.sample_decoded_clips(served, "sad", T),
+                 "ssim": deployment.sample_decoded_clips(served, "ssim", T), "host": host}
+    want, classify_s = {}, {}
+    for key, clips in reference.items():
+        want[key] = deployment.classify_videos(model, clips)
+        t0 = time.perf_counter()
+        deployment.classify_videos(model, clips)
+        classify_s[key] = (time.perf_counter() - t0) / len(served)
+    by_name = dict(zip(names, served))
+
+    def seeded(path, *args, **kwargs):
+        return list(by_name[Path(path).name])
+
+    backend = _Backend()
+    modes = [("device_sad", "sad", ["--device_sampling", "--sampling", "sad"]),
+             ("device_ssim", "ssim", ["--device_sampling", "--sampling", "ssim"]),
+             ("host_sad", "host", ["--sampling", "sad"]),
+             ("device_sad_post", "sad", ["--device_sampling", "--sampling", "sad", "--post",
+                                         "--backend_url", backend.url])]
+    counters = _serve_counters()
+    out_rows = {}
+    try:
+        for label, ref, extra in modes:
+            if ref == "host" and not decodes:
+                print(f"{label}: skipped (nothing decodes on this host; the spawned decode "
+                      "workers cannot be given the seeded frames)")
+                continue
+            for fn in counters.values():
+                fn.launches = 0
+            out = io.StringIO()
+            patch = (contextlib.nullcontext() if decodes
+                     else mock.patch.object(video, "decode_video", seeded))
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), patch:
+                rc = deployment.main(["--model", str(root / "ck"), "--videos",
+                                      str(root / "serve"), *extra])
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = {n: fn.launches for n, fn in counters.items()}
+            expect = dict.fromkeys(counters, 0)
+            if ref != "host":
+                scorer = "ssim_pair_scores" if ref == "ssim" else "pair_scores"
+                expect[scorer] = sum(n > T for n in FILES_SERVED)
+            expect["selective_scan"] = DEPLOYED["rnn_layer"] * -(-len(served) // 32)
+            results = _cli_results(out.getvalue())
+            err = _hold_cli_probs(label, results, names, class_names, want[ref])
+            print(f"serving CLI {label}: rc {rc}, {wall:.3f} s ({wall / len(served):.4f} s a "
+                  f"video, classify_videos alone {classify_s[ref]:.4f} s a video); launches "
+                  f"{_nonzero(launches)} (expected {_nonzero(expect)}); probabilities within "
+                  f"{err} of classify_videos; labels {[r['labels'][0] for r in results]}")
+            if rc != 0 or launches != expect:
+                raise AssertionError(f"serving CLI {label}: rc {rc}, launches {launches}")
+            if "post" in label:
+                posted = [(b["url"], b["labels"]) for b in backend.bodies]
+                if posted != [(deployment.construct_url(r["video_name"]), r["labels"])
+                              for r in results]:
+                    raise AssertionError(f"serving CLI {label}: the backend got {posted}")
+                print(f"serving CLI {label}: the local backend received {len(posted)} results")
+            out_rows[label] = {"cli_s_per_video": wall / len(served),
+                               "classify_s_per_video": classify_s[ref],
+                               "max_prob_err": err, "launches": _nonzero(launches)}
+    finally:
+        backend.close()
+    del model
+    torch.cuda.empty_cache()
+    return {"serve": out_rows, "load_model_s": load_s}
+
+
+def _files_path(torch, gpu) -> None:
+    """Phase 15: what the host decodes with, the seeded AVI dataset decoded
+    (held bit-equal) and ingested into a clip cache, the streamed train CLI
+    (``_files_train``) and the serving CLI (``_files_serve``)."""
+    import tempfile
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    found = _host_decoders()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        argv, cfg, served, decode_ms, build_s = _files_ingest(root, found)
+        train = _files_train(torch, argv, cfg, root)
+        serve = _files_serve(torch, root, served, decode_ms is not None)
+    summary = {"files": {"host": found, "decode_ms_per_video": decode_ms,
+                         "clipcache_build_s": build_s, **train, **serve}, "gpu": gpu}
+    print(json.dumps(summary))
+    print(f"files phase: {time.perf_counter() - t0:.1f} s")
+
+
 def _bwd_timing(torch, gen, name, dims) -> dict:
     """One backward entry point at the main path's shape: time by events and
     from a CUDA graph, autograd through the plain version (its forward
@@ -2910,6 +3384,7 @@ def main(argv: list[str]) -> int:
     _resume_and_weights(torch, gpu)
     zoo = _zoo_path(torch, gen, gpu)
     _caption_path(torch, gen, gpu)
+    _files_path(torch, gpu)
     kernels = _kernel_timings(torch, gen, launches, errs, gpu, zoo["served"])
     kernels += _bwd_rows(torch, gen, train_launches, bwd_errs, zoo["trained"])
     print(json.dumps({"kernels": kernels, "gpu": gpu}))

@@ -1,9 +1,11 @@
 """CPU tests of ``chip_smoke.py``'s helpers that need no card: the summary
 of nvcc's ``-Xptxas -v`` log it prints after the build, the bound it
-reports beside each kernel, and the state_dict layouts its zoo phase writes
-out."""
+reports beside each kernel, the state_dict layouts its zoo phase writes
+out, and the files phase's AVI writer and CLI hold."""
 
 from __future__ import annotations
+
+import json
 
 import pytest
 
@@ -360,3 +362,39 @@ def test_caption_decode_modes_exit_with_the_roadmap_item(capsys):
                  ["--annotations", "a.txt", "--synthetic"]):
         assert main(argv) != 0
         assert "ROADMAP Queue 1 item 3" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("decoder", ["cv2", "native"])
+@pytest.mark.parametrize("size", [(80, 80), (15, 17)])
+def test_files_phase_avi_decodes_to_the_seeded_frames(tmp_path, decoder, size):
+    """The phase's uncompressed AVI files read back bit-equal through the
+    port's decode (rows padded to 4 bytes at odd widths)."""
+    pytest.importorskip("cv2")
+    import numpy as np
+
+    from vct_torch.data import video, videodec
+
+    if decoder == "native" and not videodec.is_available():
+        pytest.fail("the native decoder must build where the ffmpeg libraries are")
+    frames = np.random.RandomState(0).randint(0, 256, (7,) + size + (3,), np.uint8)
+    path = tmp_path / "v.avi"
+    chip_smoke._write_avi(path, frames)
+    got = video.decode_video(str(path), size[0], size[1], decoder=decoder)
+    assert np.array_equal(np.stack(got), frames)
+
+
+def test_files_phase_holds_cli_probabilities_by_label():
+    """The CLI's sorted labels and scores are put back in class order and
+    held to the in-process probabilities; names must match the requests."""
+    import numpy as np
+
+    want = np.array([[0.25, 0.75], [0.6, 0.4]], np.float32)
+    results = [{"video_name": "a", "labels": ["y", "x"], "scores": [0.75, 0.25]},
+               {"video_name": "b", "labels": ["x", "y"], "scores": [0.6, 0.4]}]
+    text = "Final data shape: (2, 4, 8, 8, 3)\n" + json.dumps(results, indent=4) + "\nrest"
+    assert chip_smoke._cli_results(text) == results
+    assert chip_smoke._hold_cli_probs("t", results, ["a", "b"], ["x", "y"], want) < 1e-7
+    with pytest.raises(AssertionError, match="differ"):
+        chip_smoke._hold_cli_probs("t", results, ["a", "b"], ["x", "y"], want[::-1].copy())
+    with pytest.raises(AssertionError, match="requests"):
+        chip_smoke._hold_cli_probs("t", results, ["b", "a"], ["x", "y"], want)

@@ -523,9 +523,18 @@ def test_cli_trains_saves_and_prints_the_block_on_the_cpu(tmp_path):
     assert "mamba_0.mixer.A_log" in state_dict
 
 
-def test_cli_refuses_real_datasets_and_needs_the_card_by_default(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--device", "cpu", "--data.dataset_path", "/nonexistent"])
+def test_cli_refuses_real_datasets_and_needs_the_card_by_default(monkeypatch, tmp_path):
+    """A dataset directory that does not exist is refused as vct refuses it
+    (the ingest itself is held against vct in test_torch_stream.py)."""
+    from vct.train import __main__ as vct_cli
+
+    argv = ["--data.dataset_path", str(tmp_path / "none"),
+            "--data.processed_data_path", str(tmp_path / "cache")]
+    with pytest.raises(FileNotFoundError) as want:
+        vct_cli.main(argv)
+    with pytest.raises(FileNotFoundError) as got:
+        cli.main(["--device", "cpu", *argv])
+    assert str(got.value) == str(want.value)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--data.synthetic", "true", *[a for k, v in _overrides().items()

@@ -18,7 +18,14 @@ backward kernels; captioning (``vct_torch.caption``: the S2VT v2 and 1s2vt,
 transformer and v1 LSTM/GRU captioners, on-device beam search, the caption
 trainer and ``python -m vct_torch.caption``), on plain PyTorch as in
 ``vct``, no kernel on its path; and the frame normalize kernel
-``normalize_frames``, which no path calls, as in ``vct``.
+``normalize_frames``, which no path calls, as in ``vct``. The host data
+path (``vct_torch.data``: decode, the host samplers, the clip cache, ingest)
+feeds training from a dataset directory (``python -m vct_torch.train
+--data.dataset_path DIR``, with ``--data.stream true`` out of core) and the
+serving CLI (``python -m vct_torch.serve.deployment``).
+
+Importing the package, or its host data path, imports no torch: the
+decode workers import that path alone.
 """
 
 from vct_torch.device import resolve_device

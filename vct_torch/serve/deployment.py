@@ -1,6 +1,7 @@
-"""Batch inference: decoded videos -> frame selection -> batched softmax.
+"""Batch inference: video files -> frame selection -> batched softmax, and
+the CLI ``python -m vct_torch.serve.deployment``.
 
-Port of the serving half of ``vct/serve/deployment.py``:
+Port of ``vct/serve/deployment.py``:
 
 * ``sample_decoded_clips`` — the post-decode half of
   ``_load_with_device_sampling``: short videos are cycled up to T, longer
@@ -15,28 +16,44 @@ Port of the serving half of ``vct/serve/deployment.py``:
   <label>`` lines and the label counts.
 
 * ``load_model`` — rebuild a model from a vct_torch checkpoint on the card.
+* ``post_results`` — POST each result to the backend (standard library
+  ``urllib``, the payload and 10 s timeout of ``vct``'s ``requests`` call).
+* ``_load_with_device_sampling`` — decode every frame on the host, then
+  ``sample_decoded_clips`` on the device, one video at a time.
+* ``main`` — the CLI: ``--model DIR`` (a vct_torch checkpoint) and
+  ``--videos DIR`` (host sampling through ``load_dataset_inference``, or
+  ``--device_sampling``) or ``--frames DIR``; ``--post``; ``--device``.
 
-Video decoding, the CLI (``main``), ``post_results`` and mesh serving are
-not ported yet (ROADMAP Queue 1), nor the converter of a ``vct`` (Orbax)
-checkpoint (Queue 1 item 4), which ``load_model`` refuses.
+Not ported: the ``.vctaot`` artifact (ROADMAP Queue 1 item 7), which
+``main`` refuses; mesh serving over more than one card (item 8), which
+``--mesh`` refuses (on one card it changes nothing, as in ``vct``); the
+converter of a ``vct`` (Orbax) checkpoint (item 4), which ``load_model``
+refuses.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import re
+import sys
+import urllib.error
+import urllib.request
 from collections import Counter
 from datetime import datetime
-from typing import List, Optional, Sequence
+from typing import TYPE_CHECKING, List, Optional, Sequence
 
 import numpy as np
-import torch
 
-from vct_torch.data.preprocess import device_sample_clips, preprocess_clips
-from vct_torch.data.samplers import duplicate_frames
 from vct_torch.device import resolve_device
-from vct_torch.models import build_model
-from vct_torch.train.checkpoint import load_checkpoint, load_weights
+
+if TYPE_CHECKING:
+    import torch
+
+# torch, the models and the kernels are imported by the functions that use
+# them: the CLI's spawned decode workers import this module as their main
+# module, and need none of them.
 
 __all__ = [
     "construct_url",
@@ -44,6 +61,8 @@ __all__ = [
     "sample_decoded_clips",
     "classify_videos",
     "classify_and_display",
+    "post_results",
+    "main",
 ]
 
 
@@ -63,6 +82,9 @@ def load_model(model_dir: str, device=None):
     directory, on ``device`` (default: the card), in eval mode. A ``vct``
     (Orbax) checkpoint raises ``ValueError``; a tensor that does not match
     the rebuilt model raises (``load_weights``)."""
+    from vct_torch.models import build_model
+    from vct_torch.train.checkpoint import load_checkpoint, load_weights
+
     state_dict, cfg, class_names, _ = load_checkpoint(model_dir)
     model = build_model(cfg.model, cfg.data.sequence_length, device=device,
                         frame_size=(cfg.data.img_height, cfg.data.img_width))
@@ -101,6 +123,11 @@ def sample_decoded_clips(frames_per_video: Sequence[np.ndarray], sampling: str,
     Raises ``KeyError`` for an unknown sampling method and ``ValueError``
     for a video without frames.
     """
+    import torch
+
+    from vct_torch.data.preprocess import device_sample_clips, preprocess_clips
+    from vct_torch.data.samplers import duplicate_frames
+
     if sampling not in _DEVICE_METHODS:
         raise KeyError(
             f"Unknown sampling method {sampling!r} for --device_sampling; "
@@ -132,24 +159,26 @@ def sample_decoded_clips(frames_per_video: Sequence[np.ndarray], sampling: str,
     return torch.stack(clips)
 
 
-@torch.inference_mode()
 def classify_videos(model, clips, batch_size: int = 32, device=None) -> np.ndarray:
     """Softmax probabilities (N, num_classes) for (N, T, H, W, 3) clips.
 
     ``model`` must live on ``device`` (default: the card). The final
     partial chunk zero-pads up to ``batch_size``.
     """
+    import torch
+
     dev = resolve_device(device)
-    x = torch.as_tensor(clips).to(dev, torch.float32)
     probs = []
-    for start in range(0, len(x), batch_size):
-        chunk = x[start:start + batch_size]
-        n = len(chunk)
-        if n < batch_size:
-            pad = chunk.new_zeros((batch_size - n,) + tuple(chunk.shape[1:]))
-            chunk = torch.cat([chunk, pad])
-        p = torch.softmax(model(chunk).to(torch.float32), dim=-1)
-        probs.append(p[:n].cpu().numpy())
+    with torch.inference_mode():
+        x = torch.as_tensor(clips).to(dev, torch.float32)
+        for start in range(0, len(x), batch_size):
+            chunk = x[start:start + batch_size]
+            n = len(chunk)
+            if n < batch_size:
+                pad = chunk.new_zeros((batch_size - n,) + tuple(chunk.shape[1:]))
+                chunk = torch.cat([chunk, pad])
+            p = torch.softmax(model(chunk).to(torch.float32), dim=-1)
+            probs.append(p[:n].cpu().numpy())
     return np.concatenate(probs) if probs else np.zeros((0,), np.float32)
 
 
@@ -183,3 +212,153 @@ def classify_and_display(
     for label, count in label_counter.items():
         print(f"{label}: {count}")
     return results
+
+
+def post_results(results: List[dict], backend_url: str) -> dict:
+    """POST each result to the backend as JSON, 10 s timeout.
+
+    Returns {video_name: bool}: True only for results the backend confirmed
+    (HTTP 200/201), so callers can keep the others for a retry."""
+    posted = {}
+    for result in results:
+        video_name = result["video_name"]
+        posted[video_name] = False
+        video_url = construct_url(video_name)
+        if not video_url:
+            print(f"Failed to construct URL for {video_name}")
+            continue
+        payload = {
+            "url": video_url,
+            "labels": result["labels"],
+            "scores": result["scores"],
+            "timestamp": result["timestamp"],
+        }
+        request = urllib.request.Request(
+            backend_url, data=json.dumps(payload).encode(), method="POST",
+            headers={"Content-Type": "application/json"},
+        )
+        try:
+            try:
+                with urllib.request.urlopen(request, timeout=10) as response:
+                    status, text = response.status, response.read().decode(errors="replace")
+            except urllib.error.HTTPError as e:  # a reply, with an error status
+                status, text = e.code, e.read().decode(errors="replace")
+            if status in (200, 201):
+                posted[video_name] = True
+                print(f"Successfully sent classification result to backend for {video_name}")
+            else:
+                print(
+                    f"Failed to send classification result for {video_name}. "
+                    f"HTTP {status}: {text}"
+                )
+        except (OSError, ValueError) as e:  # no connection, a timeout, a bad URL
+            print(f"Error sending result to backend for {video_name}: {e}")
+    return posted
+
+
+def _load_with_device_sampling(videos_dir: str, sampling: str, seq_len: int, img_h: int,
+                               img_w: int, device=None):
+    """Decode every frame of each video on the host (uint8), then select
+    and normalize on ``device`` (default: the card) through
+    ``sample_decoded_clips``, one video at a time. Returns ((N, T, H, W, 3)
+    f32 clips on the device, names); a file that fails to decode is
+    reported and skipped."""
+    import torch
+
+    from vct_torch.data import video
+    from vct_torch.data.ingest import VIDEO_EXTS
+
+    if sampling not in _DEVICE_METHODS:
+        raise KeyError(
+            f"Unknown sampling method {sampling!r} for --device_sampling; "
+            f"available: {sorted(_DEVICE_METHODS)}"
+        )
+    dev = resolve_device(device)
+    names, clips = [], []
+    for fname in sorted(os.listdir(videos_dir)):
+        if not fname.lower().endswith(VIDEO_EXTS):
+            continue
+        try:
+            frames = video.decode_video(os.path.join(videos_dir, fname), img_h, img_w)
+        except Exception as e:  # a bad file is skipped and reported, as in vct
+            print(f"Error processing {fname}: {e}")
+            continue
+        if not frames:
+            continue
+        clips.append(sample_decoded_clips([np.stack(frames)], sampling, seq_len, device=dev)[0])
+        names.append(fname)
+    x = (torch.stack(clips) if clips
+         else torch.zeros((0, seq_len, img_h, img_w, 3), device=dev))
+    print(f"Final data shape: {tuple(x.shape)}")
+    return x, names
+
+
+def _visible_devices(dev: torch.device) -> int:
+    import torch
+
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Batch video classification")
+    parser.add_argument("--model", required=True, help="vct_torch checkpoint directory")
+    parser.add_argument("--videos", default=None, help="directory of videos")
+    parser.add_argument("--frames", default=None,
+                        help="directory of extracted frame images for ONE clip")
+    parser.add_argument("--sampling", default=None, help="override sampling method")
+    parser.add_argument("--sequence_length", type=int, default=None)
+    parser.add_argument("--batch_size", type=int, default=32)
+    parser.add_argument("--post", action="store_true", help="POST results to backend")
+    parser.add_argument("--backend_url", default=None)
+    parser.add_argument("--mesh", action="store_true",
+                        help="shard inference over every visible card (one card: no change)")
+    parser.add_argument("--device_sampling", action="store_true",
+                        help="select frames on the device (decode every frame on the "
+                             "host, score and top-k select on the device)")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the card; 'cpu' to run on the CPU)")
+    args = parser.parse_args(argv)
+    if not args.videos and not args.frames:
+        parser.error("one of --videos or --frames is required")
+    if os.path.isfile(args.model):
+        parser.error(f"{args.model} is a file: a .vctaot artifact is not ported to "
+                     "vct_torch yet (ROADMAP Queue 1 item 7); pass a vct_torch "
+                     "checkpoint directory")
+    dev = resolve_device(args.device)
+    if args.mesh and _visible_devices(dev) > 1:
+        raise NotImplementedError("--mesh over more than one card is not ported to "
+                                  "vct_torch yet (ROADMAP Queue 1 item 8)")
+
+    model, class_names, cfg = load_model(args.model, device=dev)
+    sampling = args.sampling or cfg.data.sampling_method
+    seq_len = args.sequence_length or cfg.data.sequence_length
+    img_h, img_w = cfg.data.img_height, cfg.data.img_width
+    if args.frames:
+        from vct_torch.data.frames import preprocess_frames_dir
+
+        clip = preprocess_frames_dir(args.frames, seq_len, img_h, img_w)
+        probs = classify_videos(model, clip, batch_size=1, device=dev)
+        print(f"Predicted class: {class_names[int(np.argmax(probs[0]))]}")
+        return 0
+    if args.device_sampling:
+        clips, names = _load_with_device_sampling(args.videos, sampling, seq_len, img_h,
+                                                  img_w, device=dev)
+    else:
+        from vct_torch.data.ingest import load_dataset_inference
+
+        clips, names = load_dataset_inference(
+            args.videos, sampling_method=sampling, sequence_length=seq_len,
+            img_height=img_h, img_width=img_w,
+        )
+    if len(names) == 0:
+        print("No videos found.")
+        return 1
+    results = classify_and_display(model, clips, names, class_names,
+                                   batch_size=args.batch_size, device=dev)
+    if args.post:
+        post_results(results, args.backend_url or cfg.serve.backend_url)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

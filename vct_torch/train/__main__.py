@@ -1,11 +1,12 @@
 """Training entry point: ``python -m vct_torch.train [--config file]
 [--device cpu] [--a.b v ...]``, the port of ``vct/train/__main__.py``.
 
-Synthesize the dataset (``--data.synthetic true``), split it, build the
-model on the card (or on ``--device``), train with the configured loss,
-save the checkpoint and print the reference-compatible metric block.
-Real-dataset ingest and ``data.stream`` are not ported yet (ROADMAP Queue 1
-item 3) and raise.
+Load the dataset (``--data.synthetic true``, or a class-directory dataset
+at ``--data.dataset_path`` decoded into the configured cache by
+``load_or_build_dataset``), split it, build the model on the card (or on
+``--device``), train with the configured loss, save the checkpoint and print
+the reference-compatible metric block. With ``--data.stream true`` the
+batches stream out of the cache (``vct_torch.train.stream``).
 """
 
 from __future__ import annotations
@@ -21,18 +22,19 @@ from vct_torch.train.engine import Trainer, compute_class_weights
 
 def load_training_data(cfg: Config):
     """Returns (x, y, class_names)."""
-    if not cfg.data.synthetic:
-        raise NotImplementedError("dataset ingest is not ported to vct_torch yet (ROADMAP "
-                                  "Queue 1 item 3); pass --data.synthetic true")
-    return generate_dummy_data(
-        num_samples=cfg.data.synthetic_samples,
-        sequence_length=cfg.data.sequence_length,
-        height=cfg.data.img_height,
-        width=cfg.data.img_width,
-        num_classes=cfg.model.num_classes,
-        classif_mode=cfg.model.classif_mode,
-        seed=cfg.train.seed,
-    )
+    if cfg.data.synthetic:
+        return generate_dummy_data(
+            num_samples=cfg.data.synthetic_samples,
+            sequence_length=cfg.data.sequence_length,
+            height=cfg.data.img_height,
+            width=cfg.data.img_width,
+            num_classes=cfg.model.num_classes,
+            classif_mode=cfg.model.classif_mode,
+            seed=cfg.train.seed,
+        )
+    from vct_torch.data.ingest import load_or_build_dataset
+
+    return load_or_build_dataset(cfg)
 
 
 def _pop_option(argv: list, name: str):
@@ -53,8 +55,10 @@ def main(argv=None) -> int:
     device = _pop_option(argv, "--device")  # default: the card
     cfg = load_config(config_path, parse_cli_overrides(argv))
     if cfg.data.stream and not cfg.data.synthetic:
-        raise NotImplementedError("data.stream is not ported to vct_torch yet (ROADMAP "
-                                  "Queue 1 item 3)")
+        from vct_torch.train.stream import stream_train_eval
+
+        stream_train_eval(cfg, device=device)
+        return 0
 
     x, y, class_names = load_training_data(cfg)
     x_train, x_test, y_train, y_test = train_test_split(

@@ -33,9 +33,10 @@ Dropout draws its masks from a ``torch.Generator`` on the device seeded from
 loads torchvision backbone weights (``vct_torch.models.backbones.port``);
 ``train.profile_dir`` traces the first epoch that runs and
 ``train.history_path`` writes the history JSON (``vct_torch.utils.profiling``).
-Not ported yet, each raising ``NotImplementedError`` that names ROADMAP
-Queue 1: a device mesh (anything but one device) and ``fit_stream``
-(``vct/train/stream.py``).
+``fit`` takes in-memory arrays or any loader of ``vct_torch.data.loaders``
+(the streamed path, ``vct_torch.train.stream``); ``fit_stream`` is ``vct``'s
+alias of it. Not ported yet, raising ``NotImplementedError`` that names
+ROADMAP Queue 1: a device mesh (anything but one device).
 """
 
 from __future__ import annotations
@@ -462,7 +463,8 @@ class Trainer:
         return float(np.mean(torch.stack(losses).cpu().numpy()))
 
     def fit_stream(self, state: TrainState, loader, log: bool = True):
-        raise _not_yet("fit_stream (vct/train/stream.py)", "item 3, with its loaders")
+        """``vct``'s alias: the loader path is ``fit``."""
+        return self.fit(state, loader, log=log)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
