@@ -206,7 +206,22 @@ line):
     K4 once a video longer than T, K3 3), probabilities within 1e-5 of
     ``classify_videos`` in process, seconds a video end to end beside
     ``classify_videos`` alone;
-16. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
+16. the worker — phase 15's checkpoint and served files behind TikTok URLs,
+    served through the port's stack: ``vct_torch.serve.backend`` on an
+    ephemeral port with a ``ResultStore``, the queue, and a
+    ``vct_torch.serve.worker.Worker`` on the card (host SAD sampling, a
+    downloader that copies the URL's file, ``_local_downloader``); three
+    files wait in VIDEO_DIR, so the first message classifies four videos
+    and three URLs come from the store; a client asks ``GET /get_labels``
+    for each of the 8 URLs. Launches are read around each message (K3 3 a
+    forward, ceil(N/32) forwards; K1, K4 and the rest never); the stored
+    scores within 1e-5 of ``classify_videos`` in process on clips sampled
+    apart from the worker, the client's labels the stored ones, one row a
+    URL, VIDEO_DIR empty. Seconds a URL end to end, a message's download,
+    check, decode+select, forward and POST, beside ``classify_videos`` alone;
+    then the peak device memory of ``classify_videos`` over 32 and 128 host
+    clips of 60x80x80x3 (its rise under one chunk's f32 bytes);
+17. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
     launches, error, time, plain time, bound (K3 forward and backward also at
     the VideoMamba step, B=32 T=16 D=2048 N=16, ``"config": "videomamba"``,
     launches from phase 13) and, for K2/K5, the design,
@@ -2852,25 +2867,281 @@ def _files_serve(torch, root: Path, served: list, decodes: bool) -> dict:
     return {"serve": out_rows, "load_model_s": load_s}
 
 
-def _files_path(torch, gpu) -> None:
+def _files_path(torch, gpu, root: Path) -> bool:
     """Phase 15: what the host decodes with, the seeded AVI dataset decoded
     (held bit-equal) and ingested into a clip cache, the streamed train CLI
-    (``_files_train``) and the serving CLI (``_files_serve``)."""
-    import tempfile
-
+    (``_files_train``) and the serving CLI (``_files_serve``), all under
+    ``root``, where the trained checkpoint (``ck``) and the served files
+    (``serve``) stay for phase 16. Returns whether the host decodes."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     found = _host_decoders()
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        argv, cfg, served, decode_ms, build_s = _files_ingest(root, found)
-        train = _files_train(torch, argv, cfg, root)
-        serve = _files_serve(torch, root, served, decode_ms is not None)
+    argv, cfg, served, decode_ms, build_s = _files_ingest(root, found)
+    train = _files_train(torch, argv, cfg, root)
+    serve = _files_serve(torch, root, served, decode_ms is not None)
     summary = {"files": {"host": found, "decode_ms_per_video": decode_ms,
                          "clipcache_build_s": build_s, **train, **serve}, "gpu": gpu}
     print(json.dumps(summary))
     print(f"files phase: {time.perf_counter() - t0:.1f} s")
+    return decode_ms is not None
+
+
+# The worker phase: phase 15's trained checkpoint and served AVI files
+# through the port's serving stack (backend, queue, worker, store), as a
+# client of the REST backend sees it.
+WORKER_BACKLOG = 3  # served files already in VIDEO_DIR when the first message comes
+WORKER_BATCH = 32  # classify_videos' batch, the worker's
+WORKER_POLL_S = 30.0  # /get_labels gives up after this long
+# The worker's stored scores against classify_videos in process on the same clips.
+WORKER_TOL = 1e-5
+# Clips of the fault 1 check: the peak device memory of classify_videos may
+# rise by less than one chunk's f32 bytes from the first count to the second.
+FAULT1_CLIPS = (32, 128)
+
+
+def _video_name(url: str, suffix: str) -> str:
+    """The file name the TikTok client gives a video URL:
+    ``https://www.tiktok.com/@user/video/<id>`` -> ``@user_video_<id><suffix>``,
+    the inverse of ``construct_url``."""
+    match = re.search(r"/(@[\w.]+)/video/(\d+)$", url)
+    if match is None:
+        raise ValueError(f"not a TikTok video URL: {url}")
+    return f"{match.group(1)}_video_{match.group(2)}{suffix}"
+
+
+def _local_downloader(src: Path, suffix: str, seconds: list):
+    """A worker ``downloader`` that copies a URL's video from ``src`` (its
+    file named by ``_video_name``) into the worker's directory, the seconds
+    of each copy appended to ``seconds``."""
+    import shutil
+
+    def download(url: str, save_dir: str) -> None:
+        t0 = time.perf_counter()
+        shutil.copy(src / _video_name(url, suffix), save_dir)
+        seconds.append(time.perf_counter() - t0)
+
+    return download
+
+
+def _fault1_check(torch, model) -> dict:
+    """The rise of ``classify_videos``' peak device memory from
+    ``FAULT1_CLIPS[0]`` to ``FAULT1_CLIPS[1]`` host clips of T x H x W x 3
+    f32 must stay under one chunk's bytes: one chunk is on the device at a
+    time."""
+    from vct_torch.serve.deployment import classify_videos
+
+    clips = np.random.default_rng(16).random((max(FAULT1_CLIPS), T, H, W, 3), dtype=np.float32)
+    chunk = WORKER_BATCH * clips[0].nbytes
+    classify_videos(model, clips[:WORKER_BATCH])  # warm
+    peaks = {}
+    for n in FAULT1_CLIPS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        classify_videos(model, clips[:n])
+        torch.cuda.synchronize()
+        peaks[n] = torch.cuda.max_memory_allocated() - base
+    rise = peaks[FAULT1_CLIPS[1]] - peaks[FAULT1_CLIPS[0]]
+    print(f"fault 1: classify_videos' peak device memory {peaks} bytes over the clips held "
+          f"before, a rise of {rise} bytes from N={FAULT1_CLIPS[0]} to N={FAULT1_CLIPS[1]} "
+          f"host clips against one chunk's {chunk}")
+    if not rise < chunk:
+        raise AssertionError(f"classify_videos holds more than one chunk on the device: "
+                             f"rise {rise} >= {chunk}")
+    return {"peak_bytes": peaks, "rise_bytes": rise, "chunk_bytes": chunk}
+
+
+def _worker_path(torch, gpu, root: Path, decodes: bool) -> None:
+    """Phase 16: phase 15's served files behind URLs, served through
+    ``vct_torch.serve.backend`` (a ``ResultStore`` under ``root``, an
+    ephemeral port), the queue and a ``vct_torch.serve.worker.Worker`` on the
+    card with host SAD sampling and a local-copy downloader; a client asks
+    ``GET /get_labels`` for each URL. The first ``WORKER_BACKLOG`` others wait
+    in VIDEO_DIR, so the first message classifies them too and their URLs
+    then come from the store. Launches are read around each message (K3 3 a
+    forward, ceil(N/32) forwards; nothing else), the stored scores held to
+    ``classify_videos`` in process on clips sampled apart from the worker,
+    the store and VIDEO_DIR checked; then the fault 1 check."""
+    import contextlib
+    import io
+    import socket
+    import threading
+    import urllib.parse
+    import urllib.request
+
+    from vct_torch.core.config import ServeConfig
+    from vct_torch.data.ingest import load_dataset_inference
+    from vct_torch.serve import backend, deployment
+    from vct_torch.serve import worker as worker_module
+    from vct_torch.serve.queue import QueuePull
+    from vct_torch.serve.store import ResultStore
+
+    if not decodes:
+        raise AssertionError("phase 16 samples on the host and needs a decoder (cv2)")
+    t0 = time.perf_counter()
+    src = root / "serve"
+    names = sorted(p.name for p in src.iterdir())
+    suffix = Path(names[0]).suffix
+    urls = [deployment.construct_url(n) for n in names]
+    backlog = names[1:1 + WORKER_BACKLOG]
+    video_dir = root / "worker_videos"
+    video_dir.mkdir()
+    for name in backlog:
+        (video_dir / name).write_bytes((src / name).read_bytes())
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        queue_port = s.getsockname()[1]
+    store = ResultStore(str(root / "results.db"))
+    cfg = ServeConfig(model_path=str(root / "ck"), sampling_method="sad", sequence_length=T,
+                      video_dir=str(video_dir), queue_port=queue_port,
+                      backend_host="127.0.0.1", backend_port=0, db_path=store.path)
+    server = backend.make_server(cfg, store=store, poll_timeout=WORKER_POLL_S)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    cfg = dataclasses.replace(cfg, backend_base_url=base)
+    downloads = []
+    t_load = time.perf_counter()
+    w = worker_module.Worker(cfg, downloader=_local_downloader(src, suffix, downloads))
+    load_s = time.perf_counter() - t_load
+    w.pull = QueuePull(host="127.0.0.1", port=queue_port)
+    w.pull.bind()
+
+    counters = _serve_counters()
+    records = []
+
+    def timed(key, fn):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            records[-1][key] = time.perf_counter() - t
+            if key == "forward_s":
+                records[-1]["clips"], records[-1]["names"] = np.array(args[1]), list(args[2])
+            return out
+
+        return call
+
+    callback = w.callback
+
+    def counted(url):
+        for fn in counters.values():
+            fn.launches = 0
+        records.append({"url": url})
+        t = time.perf_counter()
+        try:
+            callback(url)
+        finally:
+            torch.cuda.synchronize()
+            records[-1]["callback_s"] = time.perf_counter() - t
+            records[-1]["launches"] = {n: fn.launches for n, fn in counters.items()}
+            records[-1]["download_s"] = downloads[-1] if downloads else None
+
+    w.callback = counted
+    w._already_classified = timed("check_s", w._already_classified)
+    log = io.StringIO()
+    replies, server_thread = [], threading.Thread(target=server.serve_forever, daemon=True)
+    worker_thread = threading.Thread(target=w.run, daemon=True)
+    patches = [mock.patch.object(worker_module, name, timed(key, getattr(worker_module, name)))
+               for name, key in (("load_dataset_inference", "decode_select_s"),
+                                 ("classify_and_display", "forward_s"),
+                                 ("post_results", "post_s"))]
+    try:
+        with contextlib.ExitStack() as stack:
+            for patch in patches:
+                stack.enter_context(patch)
+            stack.enter_context(contextlib.redirect_stdout(log))
+            server_thread.start()
+            worker_thread.start()
+            for url in urls:
+                query = urllib.parse.urlencode({"url": url})
+                t = time.perf_counter()
+                with urllib.request.urlopen(f"{base}/get_labels?{query}",
+                                            timeout=WORKER_POLL_S + 30) as r:
+                    replies.append((r.status, json.loads(r.read()), time.perf_counter() - t))
+    finally:
+        w.pull.close()
+        if worker_thread.ident is not None:
+            worker_thread.join(timeout=60)
+        server.shutdown()
+        server.server_close()
+        if server_thread.ident is not None:
+            server_thread.join(timeout=30)
+    if worker_thread.is_alive() or server_thread.is_alive():
+        raise AssertionError("phase 16: the worker or the backend did not stop")
+    said = ("Processing message", "Final data shape", "Keeping", "Dropping", "Deleted",
+            "Error", "Failed", "No videos")
+    print("\n".join(f"  | {line}" for line in log.getvalue().splitlines()
+                    if line.startswith(said)))
+
+    # the client's labels, the store, VIDEO_DIR
+    rows = {r["url"]: r for r in store.all()}
+    if [r[0] for r in replies] != [200] * len(urls) or sorted(rows) != sorted(urls):
+        raise AssertionError(f"phase 16: replies {[r[:2] for r in replies]}, stored {sorted(rows)}")
+    for url, (_, body, _) in zip(urls, replies):
+        if body != {"url": url, "labels": rows[url]["labels"]}:
+            raise AssertionError(f"phase 16: the client got {body} for {url}")
+    left = sorted(p.name for p in video_dir.iterdir())
+    if left:
+        raise AssertionError(f"phase 16: confirmed files left in VIDEO_DIR: {left}")
+
+    # launches around each message, and the scores against classify_videos
+    # on clips sampled in process, grouped as the worker grouped them
+    ref_clips, ref_names = load_dataset_inference(str(src), "sad", T, H, W, decode_workers=1)
+    ref = dict(zip(ref_names, ref_clips))
+    err, messages = 0.0, []
+    for rec in records:
+        n = len(rec["names"])
+        expect = dict.fromkeys(counters, 0)
+        expect["selective_scan"] = DEPLOYED["rnn_layer"] * -(-n // WORKER_BATCH)
+        if rec["launches"] != expect:
+            raise AssertionError(f"phase 16: message {rec['url']}: launches {rec['launches']} "
+                                 f"!= {expect}")
+        clips = np.stack([ref[name] for name in rec["names"]])
+        if not np.array_equal(clips, rec["clips"]):
+            raise AssertionError(f"phase 16: the worker's clips of {rec['names']} differ from "
+                                 "load_dataset_inference in process")
+        probs = deployment.classify_videos(w.model, clips)
+        for name, p in zip(rec["names"], probs):
+            row = rows[deployment.construct_url(name)]
+            order = np.argsort(-p)
+            if row["labels"] != [w.class_names[i] for i in order]:
+                raise AssertionError(f"phase 16: labels of {name} differ from classify_videos")
+            err = max(err, float(np.abs(np.asarray(row["scores"]) - p[order]).max()))
+        messages.append({k: rec.get(k) for k in ("download_s", "check_s", "decode_select_s",
+                                                 "forward_s", "post_s", "callback_s")}
+                        | {"videos": n, "launches": _nonzero(rec["launches"])})
+    if not err <= WORKER_TOL:
+        raise AssertionError(f"phase 16: stored scores differ from classify_videos by {err}")
+
+    alone = {}
+    for n in (1, len(records[0]["names"])):
+        clips = np.stack([ref[name] for name in ref_names[:n]])
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            deployment.classify_videos(w.model, clips)
+            times.append(time.perf_counter() - t)
+        alone[n] = times
+    e2e = [r[2] for r in replies]
+    for url, (_, body, secs) in zip(urls, replies):
+        rec = next((m for m, r in zip(messages, records) if r["url"] == url), None)
+        how = (f"a message of {rec['videos']} videos: download {rec['download_s']:.4f}, check "
+               f"{rec['check_s']:.4f}, decode+select {rec['decode_select_s']:.4f}, forward "
+               f"{rec['forward_s']:.4f}, POST {rec['post_s']:.4f}, callback "
+               f"{rec['callback_s']:.4f} s; launches {rec['launches']}" if rec
+               else "from the store")
+        print(f"worker: {Path(_video_name(url, suffix)).name} -> {body['labels'][0]} in "
+              f"{secs:.4f} s end to end, {how}")
+    print(f"worker: {len(urls)} URLs, {len(records)} messages, stored scores within {err} of "
+          f"classify_videos; Worker() {load_s:.3f} s; classify_videos alone "
+          f"{ {n: [round(t, 4) for t in ts] for n, ts in alone.items()} } s")
+    fault1 = _fault1_check(torch, w.model)
+    del w
+    torch.cuda.empty_cache()
+    summary = {"worker": {"urls": len(urls), "backlog": len(backlog), "e2e_s": e2e,
+                          "messages": messages, "max_score_err": err, "worker_init_s": load_s,
+                          "classify_videos_alone_s": alone, "fault1": fault1}, "gpu": gpu}
+    print(json.dumps(summary))
+    print(f"worker phase: {time.perf_counter() - t0:.1f} s")
 
 
 def _bwd_timing(torch, gen, name, dims) -> dict:
@@ -3323,6 +3594,8 @@ def main(argv: list[str]) -> int:
     ``--bwd-timing [ROOT]`` or ``--step-timing [ROOT]``, only
     ``k1_timings``, ``bwd_timings`` or ``step_timings`` of the package at
     ROOT (default: this checkout)."""
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3384,7 +3657,9 @@ def main(argv: list[str]) -> int:
     _resume_and_weights(torch, gpu)
     zoo = _zoo_path(torch, gen, gpu)
     _caption_path(torch, gen, gpu)
-    _files_path(torch, gpu)
+    with tempfile.TemporaryDirectory() as tmp:
+        decodes = _files_path(torch, gpu, Path(tmp))
+        _worker_path(torch, gpu, Path(tmp), decodes)
     kernels = _kernel_timings(torch, gen, launches, errs, gpu, zoo["served"])
     kernels += _bwd_rows(torch, gen, train_launches, bwd_errs, zoo["trained"])
     print(json.dumps({"kernels": kernels, "gpu": gpu}))

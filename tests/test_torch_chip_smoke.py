@@ -1,7 +1,8 @@
 """CPU tests of ``chip_smoke.py``'s helpers that need no card: the summary
 of nvcc's ``-Xptxas -v`` log it prints after the build, the bound it
 reports beside each kernel, the state_dict layouts its zoo phase writes
-out, and the files phase's AVI writer and CLI hold."""
+out, the files phase's AVI writer and CLI hold, and the worker phase's
+URL-to-file mapping and local downloader."""
 
 from __future__ import annotations
 
@@ -398,3 +399,34 @@ def test_files_phase_holds_cli_probabilities_by_label():
         chip_smoke._hold_cli_probs("t", results, ["a", "b"], ["x", "y"], want[::-1].copy())
     with pytest.raises(AssertionError, match="requests"):
         chip_smoke._hold_cli_probs("t", results, ["b", "a"], ["x", "y"], want)
+
+
+# ---------------------------------------------------------------------------
+# the worker phase
+
+
+@pytest.mark.parametrize("name", ["@user0_video_1500.avi", "@some.user_video_7001.mp4"])
+def test_video_name_inverts_construct_url(name):
+    from pathlib import Path
+
+    from vct_torch.serve.deployment import construct_url
+
+    assert chip_smoke._video_name(construct_url(name), Path(name).suffix) == name
+    with pytest.raises(ValueError, match="not a TikTok video URL"):
+        chip_smoke._video_name("https://example.com/@user/photo/1", ".avi")
+
+
+def test_local_downloader_copies_the_url_s_file(tmp_path):
+    src, dst = tmp_path / "src", tmp_path / "videos"
+    src.mkdir()
+    dst.mkdir()
+    for i in (1, 2):
+        (src / f"@user_video_{i}.avi").write_bytes(bytes([i]) * 10)
+    seconds = []
+    download = chip_smoke._local_downloader(src, ".avi", seconds)
+    download("https://www.tiktok.com/@user/video/2", str(dst))
+    assert [p.name for p in dst.iterdir()] == ["@user_video_2.avi"]
+    assert (dst / "@user_video_2.avi").read_bytes() == bytes([2]) * 10
+    assert len(seconds) == 1 and seconds[0] >= 0
+    with pytest.raises(FileNotFoundError):
+        download("https://www.tiktok.com/@user/video/3", str(dst))

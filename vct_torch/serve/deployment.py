@@ -9,8 +9,9 @@ Port of ``vct/serve/deployment.py``:
   frame selection (``device_sample_clips``) with their true length: SAD
   and flow scores from the ``pair_scores`` kernel, SSIM scores (``ssim``,
   ``ssim_most_unique``) from the ``ssim_pair_scores`` kernel.
-* ``classify_videos`` — batched softmax probabilities, the final partial
-  chunk zero-padded to ``batch_size`` so every forward has one shape.
+* ``classify_videos`` — batched softmax probabilities, one chunk moved to
+  the device at a time, the final partial chunk zero-padded to
+  ``batch_size`` so every forward has one shape.
 * ``classify_and_display`` — the reference's output contract: per-video
   sorted labels and scores with a timestamp as JSON, ``Processed <name>:
   <label>`` lines and the label counts.
@@ -19,16 +20,15 @@ Port of ``vct/serve/deployment.py``:
 * ``post_results`` — POST each result to the backend (standard library
   ``urllib``, the payload and 10 s timeout of ``vct``'s ``requests`` call).
 * ``_load_with_device_sampling`` — decode every frame on the host, then
-  ``sample_decoded_clips`` on the device, one video at a time.
+  ``sample_decoded_clips`` on the device, one video at a time, each
+  selected clip back to the host.
 * ``main`` — the CLI: ``--model DIR`` (a vct_torch checkpoint) and
   ``--videos DIR`` (host sampling through ``load_dataset_inference``, or
   ``--device_sampling``) or ``--frames DIR``; ``--post``; ``--device``.
 
-Not ported: the ``.vctaot`` artifact (ROADMAP Queue 1 item 7), which
-``main`` refuses; mesh serving over more than one card (item 8), which
-``--mesh`` refuses (on one card it changes nothing, as in ``vct``); the
-converter of a ``vct`` (Orbax) checkpoint (item 4), which ``load_model``
-refuses.
+Not ported: the ``.vctaot`` artifact (ROADMAP Queue 1 item 7 (b)), which
+``main`` refuses, and mesh serving over more than one card (item 8), which
+``--mesh`` refuses (on one card it changes nothing, as in ``vct``).
 """
 
 from __future__ import annotations
@@ -162,23 +162,26 @@ def sample_decoded_clips(frames_per_video: Sequence[np.ndarray], sampling: str,
 def classify_videos(model, clips, batch_size: int = 32, device=None) -> np.ndarray:
     """Softmax probabilities (N, num_classes) for (N, T, H, W, 3) clips.
 
-    ``model`` must live on ``device`` (default: the card). The final
-    partial chunk zero-pads up to ``batch_size``.
+    ``model`` must live on ``device`` (default: the card). ``clips`` stay
+    where they are (host memory for the worker and the CLI): one
+    ``batch_size`` chunk at a time is moved to ``device``, so the device
+    holds one chunk, however many clips there are. The final partial chunk
+    zero-pads up to ``batch_size``.
     """
     import torch
 
     dev = resolve_device(device)
     probs = []
     with torch.inference_mode():
-        x = torch.as_tensor(clips).to(dev, torch.float32)
-        for start in range(0, len(x), batch_size):
-            chunk = x[start:start + batch_size]
+        for start in range(0, len(clips), batch_size):
+            chunk = torch.as_tensor(clips[start:start + batch_size]).to(dev, torch.float32)
             n = len(chunk)
             if n < batch_size:
                 pad = chunk.new_zeros((batch_size - n,) + tuple(chunk.shape[1:]))
                 chunk = torch.cat([chunk, pad])
             p = torch.softmax(model(chunk).to(torch.float32), dim=-1)
             probs.append(p[:n].cpu().numpy())
+            del chunk, p  # free this chunk before the next one is moved
     return np.concatenate(probs) if probs else np.zeros((0,), np.float32)
 
 
@@ -260,11 +263,9 @@ def _load_with_device_sampling(videos_dir: str, sampling: str, seq_len: int, img
                                img_w: int, device=None):
     """Decode every frame of each video on the host (uint8), then select
     and normalize on ``device`` (default: the card) through
-    ``sample_decoded_clips``, one video at a time. Returns ((N, T, H, W, 3)
-    f32 clips on the device, names); a file that fails to decode is
-    reported and skipped."""
-    import torch
-
+    ``sample_decoded_clips``, one video at a time, each selected clip
+    copied back to the host. Returns ((N, T, H, W, 3) float32 numpy clips,
+    names); a file that fails to decode is reported and skipped."""
     from vct_torch.data import video
     from vct_torch.data.ingest import VIDEO_EXTS
 
@@ -285,11 +286,12 @@ def _load_with_device_sampling(videos_dir: str, sampling: str, seq_len: int, img
             continue
         if not frames:
             continue
-        clips.append(sample_decoded_clips([np.stack(frames)], sampling, seq_len, device=dev)[0])
+        clip = sample_decoded_clips([np.stack(frames)], sampling, seq_len, device=dev)[0]
+        clips.append(clip.cpu().numpy())
         names.append(fname)
-    x = (torch.stack(clips) if clips
-         else torch.zeros((0, seq_len, img_h, img_w, 3), device=dev))
-    print(f"Final data shape: {tuple(x.shape)}")
+    x = (np.stack(clips) if clips
+         else np.zeros((0, seq_len, img_h, img_w, 3), np.float32))
+    print(f"Final data shape: {x.shape}")
     return x, names
 
 
@@ -322,8 +324,8 @@ def main(argv=None) -> int:
         parser.error("one of --videos or --frames is required")
     if os.path.isfile(args.model):
         parser.error(f"{args.model} is a file: a .vctaot artifact is not ported to "
-                     "vct_torch yet (ROADMAP Queue 1 item 7); pass a vct_torch "
-                     "checkpoint directory")
+                     "vct_torch yet (ROADMAP Queue 1 item 7 (b)); pass a "
+                     "vct_torch checkpoint directory")
     dev = resolve_device(args.device)
     if args.mesh and _visible_devices(dev) > 1:
         raise NotImplementedError("--mesh over more than one card is not ported to "
