@@ -221,7 +221,27 @@ line):
     check, decode+select, forward and POST, beside ``classify_videos`` alone;
     then the peak device memory of ``classify_videos`` over 32 and 128 host
     clips of 60x80x80x3 (its rise under one chunk's f32 bytes);
-17. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
+17. caption files — captioning from video files at ``vct``'s full
+    ``CaptionConfig`` (S2VT v2, resnet50 in f32, width 512, 30 frames of
+    224x224, beam 3) and the CLI's B=4: 12 seeded videos of 60-150 frames at
+    320x240 written as AVI files (``_write_avi``), two corrupt files beside
+    them, an annotation file of two captions a file drawn from phase 14's
+    stand-in vocabulary; ``extract_frames_interval`` held to the seeded
+    frames it must choose (cv2's BGR order, the interval from the frame
+    count, last-frame padding; decode ms a video); ``python -m
+    vct_torch.caption --video_dir --annotations --epochs 2 --eval`` (its
+    ``Epoch [`` and ``Average BLEU score:`` lines, the corrupt files skipped
+    with a print, a checkpoint written); one epoch on the readable clips
+    through ``LazyCaptionLoader`` (uint8, /255 on the device, the host
+    seconds a step waits on decode) held bit-equal to ``fit`` on
+    ``load_caption_dataset``'s clips in memory (/255 on the host), timed as
+    clips/s beside it; ``--caption_videos DIR --model CKPT``: one
+    ``Generated Caption:`` line a readable video, equal to ``caption_videos``
+    in process on clips decoded apart, seconds a video beside
+    ``caption_videos`` alone; a ``.vctaot`` file as ``--model`` refused
+    naming ROADMAP Queue 1 item 7 (b); every launch counter 0 around the
+    phase;
+18. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
     launches, error, time, plain time, bound (K3 forward and backward also at
     the VideoMamba step, B=32 T=16 D=2048 N=16, ``"config": "videomamba"``,
     launches from phase 13) and, for K2/K5, the design,
@@ -3144,6 +3164,340 @@ def _worker_path(torch, gpu, root: Path, decodes: bool) -> None:
     print(f"worker phase: {time.perf_counter() - t0:.1f} s")
 
 
+# The caption files phase: vct's CaptionConfig at full width (S2VT v2,
+# resnet50 in f32, cnn_output_size and hidden_size 512, 30 frames of 224x224,
+# beam 3) at the CLI's B=4, trained from a directory of seeded AVI files and
+# captioning it. No kernel is on this path, in vct or in the port.
+CAPFILES_VIDEOS = 12
+CAPFILES_FRAMES = (60, 150)  # each video's length, drawn in this range
+CAPFILES_HW = (240, 320)  # 320x240 frames
+CAPFILES_CAPTIONS = 2  # captions a video in the annotation file
+CAPFILES_WORDS = (5, 12)  # words a caption, from the stand-in vocabulary
+CAPFILES_BATCH = 4  # the CLI's batch (vct/caption/__main__.py:100)
+CAPFILES_EPOCHS = 2
+CAPFILES_CHUNK = 8  # caption_directory's chunk for a checkpoint (vct/caption/infer.py:192)
+# Files that exist and do not decode: bytes that are no video, and an AVI cut
+# inside its first frame.
+CAPFILES_CORRUPT = ("c_garbage", "c_truncated")
+# Flags the phase adds to the caption CLI: none, so vct's defaults (the full
+# width above) hold.
+CAPFILES_ARGS: list = []
+
+
+def _capfiles_write(root: Path, seed: int = 170) -> tuple:
+    """CAPFILES_VIDEOS seeded videos of uint8 noise (lengths in
+    CAPFILES_FRAMES, CAPFILES_HW frames) written as AVI files under
+    ``root / "videos"``, the corrupt files of CAPFILES_CORRUPT beside them,
+    and an annotation file of CAPFILES_CAPTIONS captions a file (the
+    readable videos first, so ``peek`` finds one) and one of the readable
+    videos alone. Returns ({name: RGB frames}, annotations, readable
+    annotations)."""
+    rng = np.random.RandomState(seed)
+    vids = root / "videos"
+    vids.mkdir(parents=True)
+    videos = {}
+    for i in range(CAPFILES_VIDEOS):
+        n = rng.randint(CAPFILES_FRAMES[0], CAPFILES_FRAMES[1] + 1)
+        videos[f"v{i:02d}"] = rng.randint(0, 256, (n, *CAPFILES_HW, 3), dtype=np.uint8)
+        _write_avi(vids / f"v{i:02d}.avi", videos[f"v{i:02d}"])
+    (vids / f"{CAPFILES_CORRUPT[0]}.avi").write_bytes(b"RIFF, but no video follows")
+    first = (vids / "v00.avi").read_bytes()
+    cut = first.index(b"00db") + 8 + 16  # 16 bytes into the first frame's chunk
+    (vids / f"{CAPFILES_CORRUPT[1]}.avi").write_bytes(first[:cut])
+    lines = {}
+    for name in [*videos, *CAPFILES_CORRUPT]:
+        lines[name] = []
+        for _ in range(CAPFILES_CAPTIONS):
+            k = rng.randint(CAPFILES_WORDS[0], CAPFILES_WORDS[1] + 1)
+            words = rng.randint(0, CAPTION_VOCAB - 4, k)
+            lines[name].append(f"{name} " + " ".join(f"w{w}" for w in words))
+    ann, readable = root / "annotations.txt", root / "readable.txt"
+    ann.write_text("\n".join(l for ls in lines.values() for l in ls) + "\n")
+    readable.write_text("\n".join(l for n in videos for l in lines[n]) + "\n")
+    return videos, ann, readable
+
+
+def _interval_frames(frames_rgb: np.ndarray, target: int, size: int) -> np.ndarray:
+    """What ``extract_frames_interval`` must give for these frames: every
+    ``max(1, n // target)``-th frame, in cv2's BGR order, resized to
+    size x size by cv2, the last repeated up to ``target``."""
+    import cv2
+
+    interval = max(1, len(frames_rgb) // target)
+    idx = list(range(0, len(frames_rgb), interval))[:target]
+    idx += [idx[-1]] * (target - len(idx))
+    return np.stack([cv2.resize(np.ascontiguousarray(frames_rgb[i][..., ::-1]), (size, size))
+                     for i in idx])
+
+
+def _generated_captions(text: str) -> dict:
+    """{file name: caption} of the ``Generated Caption:`` lines."""
+    out = {}
+    for line in text.splitlines():
+        name, sep, caption = line.partition(" Generated Caption: ")
+        if sep:
+            out[name] = caption
+    return out
+
+
+def _epoch_losses(text: str) -> list:
+    """The losses of the caption trainer's ``Epoch [k/n], Loss: x`` lines."""
+    return [float(m.group(1)) for m in re.finditer(r"^Epoch \[\d+/\d+\], Loss: (\S+)$", text,
+                                                   re.MULTILINE)]
+
+
+def _hold_generated(label: str, got: dict, want: dict) -> None:
+    """The CLI's captions must be the in-process ones, file for file."""
+    if got != want:
+        differ = sorted(n for n in set(got) | set(want) if got.get(n) != want.get(n))
+        raise AssertionError(f"{label}: captions differ for {differ}: "
+                             f"{[(n, got.get(n), want.get(n)) for n in differ[:3]]}")
+
+
+def _run_cli(torch, main, argv: list) -> tuple:
+    """(exit code, stdout, seconds) of a CLI ``main`` run in process."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def _capfiles_fits(torch, cfg, vocab, vids: Path, readable: Path) -> dict:
+    """One epoch of ``fit`` on the readable clips three ways, each from the
+    same seeded weights: in memory from ``load_caption_dataset`` (/255 on the
+    host), through ``LazyCaptionLoader`` (uint8, /255 on the device, the host
+    seconds each batch waits on decode recorded) and in memory again; the
+    lazy fit's loss and weights held bit-equal to the first."""
+    from vct_torch.caption import data
+    from vct_torch.caption.train import CaptionTrainer
+
+    fcfg = dataclasses.replace(cfg, epochs=1, checkpoint_dir="")
+    t0 = time.perf_counter()
+    x, y, kept = data.load_caption_dataset(str(vids), str(readable), vocab, cfg.num_frames,
+                                           cfg.max_caption_len, CAPTION_HW)
+    load_s = time.perf_counter() - t0
+
+    def fit(*source):
+        trainer = CaptionTrainer(fcfg, vocab)
+        state = trainer.init_state()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, losses = trainer.fit(state, *source, batch_size=CAPFILES_BATCH, log=False)
+        torch.cuda.synchronize()
+        return losses, state.model.state_dict(), time.perf_counter() - t
+
+    mem_losses, mem_weights, mem_s = fit(x, y)
+    waits = []
+    loader = _timed_loader(data.LazyCaptionLoader(
+        str(vids), str(readable), vocab, batch_size=CAPFILES_BATCH, num_frames=cfg.num_frames,
+        max_caption_len=cfg.max_caption_len), waits)
+    lazy_losses, lazy_weights, lazy_s = fit(loader)
+    _, _, mem2_s = fit(x, y)
+    # The two divisions by 255 on one clip: the host's (numpy) and the device's.
+    raw = loader._decode(0)
+    same_input = torch.equal(torch.from_numpy(raw.astype(np.float32) / 255.0),
+                             (torch.from_numpy(raw).cuda().to(torch.float32) / 255.0).cpu())
+    unequal = [k for k, v in lazy_weights.items() if not torch.equal(v, mem_weights[k])]
+    # Each unequal tensor's difference: its norm over the tensor's (phase
+    # 14's card-vs-CPU Adam measure), and its largest entry over the
+    # tensor's largest.
+    diffs = {k: (lazy_weights[k].double() - mem_weights[k].double()) for k in unequal}
+    rel_norm = {k: (d.norm() / mem_weights[k].double().norm().clamp_min(1e-30)).item()
+                for k, d in diffs.items()}
+    rel_max = max([(d.abs().max() / mem_weights[k].double().abs().max().clamp_min(1e-30)).item()
+                   for k, d in diffs.items()], default=0.0)
+    worst = max(rel_norm, key=rel_norm.get) if rel_norm else None
+    rel = rel_norm.get(worst, 0.0)
+    print(f"lazy vs in-memory fit, {len(x)} readable clips, epoch 1: loss {lazy_losses} vs "
+          f"{mem_losses}, {len(lazy_weights) - len(unequal)} of {len(lazy_weights)} tensors "
+          f"bit-equal (the others within {rel:.3g} in norm, worst {worst}, and {rel_max:.3g} "
+          f"of their largest entry); the device's /255 "
+          f"{'equals' if same_input else 'differs from'} the host's")
+    if same_input and (lazy_losses != mem_losses or unequal):
+        raise AssertionError(f"lazy fit differs from the in-memory fit: losses {lazy_losses} vs "
+                             f"{mem_losses}, tensors {unequal[:5]}")
+    # Otherwise the inputs differ by an ulp, which Adam's normalised steps
+    # carry to parameters whose gradients sit at the f32 noise floor: the
+    # loss within rtol 1e-6, each tensor within CAPTION_TOL in norm.
+    if not same_input and not (np.allclose(lazy_losses, mem_losses, rtol=1e-6, atol=0)
+                               and rel <= CAPTION_TOL):
+        raise AssertionError(f"lazy fit beyond the in-memory fit's: losses {lazy_losses} vs "
+                             f"{mem_losses}, {worst} {rel} in norm")
+    n = len(x)
+    return {"clips": n, "load_caption_dataset_s": load_s, "lazy_train_clips_per_s": n / lazy_s,
+            "memory_train_clips_per_s": [n / mem_s, n / mem2_s],
+            "decode_wait_s_per_step": sum(waits) / len(waits), "steps": len(waits),
+            "lazy_epoch1_loss": lazy_losses[0], "memory_epoch1_loss": mem_losses[0],
+            "lazy_bit_equal_memory": not unequal and lazy_losses == mem_losses,
+            "lazy_weights_rel_norm_err": rel, "lazy_weights_rel_max_err": rel_max,
+            "worst_tensor": worst, "tensors_unequal": len(unequal),
+            "device_div_equals_host_div": same_input}
+
+
+def _capfiles_caption(torch, vids: Path, ck: Path, names: list, cfg) -> dict:
+    """``--caption_videos`` on the directory with the checkpoint ``ck``: one
+    ``Generated Caption:`` line a readable video, the corrupt files skipped
+    with a print, the captions those of ``caption_videos`` in process on
+    clips decoded apart in the same chunks."""
+    from vct_torch.caption import data
+    from vct_torch.caption.__main__ import main
+    from vct_torch.caption.train import restore_caption_trainer
+
+    rc, text, cli_s = _run_cli(torch, main, ["--caption_videos", str(vids), "--model", str(ck)])
+    print("\n".join(f"  | {line}" for line in text.splitlines()))
+    got = _generated_captions(text)
+    skipped = [c for c in CAPFILES_CORRUPT if f"Error processing {c}.avi" in text]
+    if rc != 0 or sorted(got) != sorted(f"{n}.avi" for n in names) \
+            or len(skipped) != len(CAPFILES_CORRUPT):
+        raise AssertionError(f"--caption_videos: rc {rc}, captioned {sorted(got)}, skipped "
+                             f"{skipped}")
+    trainer, state, _ = restore_caption_trainer(str(ck))
+    paths = sorted(p for p in vids.iterdir() if p.suffix == ".avi")
+    want, alone = {}, 0.0
+    for start in range(0, len(paths), CAPFILES_CHUNK):
+        clips, kept = [], []
+        for p in paths[start : start + CAPFILES_CHUNK]:
+            try:
+                clips.append(data.extract_frames_interval(str(p), cfg.num_frames, CAPTION_HW))
+            except (OSError, ValueError):
+                continue
+            kept.append(p.name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        words = trainer.caption_videos(state, np.stack(clips))
+        torch.cuda.synchronize()
+        alone += time.perf_counter() - t0
+        want.update((n, " ".join(w)) for n, w in zip(kept, words))
+    _hold_generated(f"--caption_videos {ck.name}", got, want)
+    words = sum(len(c.split()) for c in got.values())
+    print(f"--caption_videos {ck.name}: {len(got)} captions ({words} words) equal to "
+          f"caption_videos in process, {cli_s:.2f} s ({cli_s / len(got):.4f} s a video; "
+          f"caption_videos alone {alone / len(got):.4f} s a video)")
+    return {"caption_cli_s_per_video": cli_s / len(got),
+            "caption_videos_s_per_video": alone / len(got), "captioned": len(got),
+            "words": words}
+
+
+def _capfiles_refuse_artifact(torch, vids: Path, root: Path) -> str:
+    """A ``.vctaot`` file as ``--model`` must raise naming ROADMAP Queue 1
+    item 7 (b); returns the message."""
+    from vct_torch.caption.__main__ import main
+
+    art = root / "captioner.vctaot"
+    art.write_bytes(b"a compiled caption artifact")
+    try:
+        _run_cli(torch, main, ["--caption_videos", str(vids), "--model", str(art)])
+    except ValueError as e:
+        if "ROADMAP Queue 1 item 7 (b)" not in str(e):
+            raise
+        print(f"--caption_videos with a .vctaot --model: {e}")
+        return str(e)
+    raise AssertionError("--caption_videos took a .vctaot file as --model")
+
+
+def _caption_files_path(torch, gpu, root: Path) -> None:
+    """Phase 17: captioning from video files at vct's full CaptionConfig:
+    the seeded AVI files and annotations (``_capfiles_write``), the frames
+    ``extract_frames_interval`` gives held to the seeded ones, ``python -m
+    vct_torch.caption --video_dir --annotations --eval`` for CAPFILES_EPOCHS
+    epochs, the lazy and in-memory fits (``_capfiles_fits``) and
+    ``--caption_videos`` (``_capfiles_caption``); every launch counter read
+    around the whole phase and required to be 0."""
+    import cv2
+
+    from vct_torch.caption import data
+    from vct_torch.caption.__main__ import main
+    from vct_torch.caption.train import CaptionTrainer
+    from vct_torch.caption.vocab import Vocabulary
+    from vct_torch.core.config import CaptionConfig
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    counters = _all_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    videos, ann, readable = _capfiles_write(root)
+    vids = root / "videos"
+    write_s = time.perf_counter() - t0
+
+    target = CaptionConfig().num_frames
+    decode_s = 0.0
+    for name, frames in videos.items():
+        t = time.perf_counter()
+        got = data.extract_frames_interval(str(vids / f"{name}.avi"), target, CAPTION_HW,
+                                           as_uint8=True)
+        decode_s += time.perf_counter() - t
+        if not np.array_equal(got, _interval_frames(frames, target, CAPTION_HW)):
+            raise AssertionError(f"extract_frames_interval of {name}.avi is not the seeded "
+                                 "frames (BGR, interval, last-frame padding)")
+    corrupt = {}
+    for name in CAPFILES_CORRUPT:
+        try:
+            data.extract_frames_interval(str(vids / f"{name}.avi"), target, CAPTION_HW)
+        except (OSError, ValueError) as e:
+            corrupt[name] = type(e).__name__
+        else:
+            raise AssertionError(f"{name}.avi decoded")
+    decode_ms = decode_s * 1e3 / len(videos)
+    print(f"extract_frames_interval (cv2 {cv2.__version__}): {len(videos)} AVI files of "
+          f"{CAPFILES_FRAMES[0]}-{CAPFILES_FRAMES[1]} frames of {CAPFILES_HW[1]}x"
+          f"{CAPFILES_HW[0]}, {target} frames of {CAPTION_HW}x{CAPTION_HW} each equal to the "
+          f"seeded frames chosen in BGR at the interval, last frame padded; {decode_ms:.3f} ms "
+          f"a video; the corrupt files raise {corrupt}")
+
+    ck = root / "caption_ck"
+    rc, text, train_cli_s = _run_cli(torch, main, [
+        "--video_dir", str(vids), "--annotations", str(ann), "--epochs", str(CAPFILES_EPOCHS),
+        "--eval", "--batch_size", str(CAPFILES_BATCH), "--checkpoint_dir", str(ck),
+        *CAPFILES_ARGS])
+    print("\n".join(f"  | {line}" for line in text.splitlines()))
+    losses = _epoch_losses(text)
+    bleu = [l for l in text.splitlines() if l.startswith("Average BLEU score:")]
+    skipped = [c for c in CAPFILES_CORRUPT if f"Error processing {c}.avi" in text]
+    manifest = json.loads((ck / "manifest.json").read_text()) if (ck / "manifest.json").exists() \
+        else {}
+    if rc != 0 or len(losses) != CAPFILES_EPOCHS or len(bleu) != 1 or "Caption:" not in text \
+            or len(skipped) != len(CAPFILES_CORRUPT) or manifest.get("epoch") != CAPFILES_EPOCHS:
+        raise AssertionError(f"caption training CLI from files: rc {rc}, losses {losses}, "
+                             f"skipped {skipped}, manifest epoch {manifest.get('epoch')}")
+    cfg = CaptionConfig(**manifest["config"])
+    n_items = len(data.preprocess_annotations(str(ann))[0])
+    print(f"caption training CLI from files: rc 0, {train_cli_s:.2f} s, losses {losses}, "
+          f"{bleu[0]}; its epoch 1 drew a permutation of all {n_items} annotated items and "
+          f"masked the {CAPFILES_CAPTIONS * len(CAPFILES_CORRUPT)} rows of the corrupt files, "
+          "which load_caption_dataset leaves out, so its loss is not the in-memory fit's: the "
+          "lazy and in-memory fits below take the readable items alone")
+    vocab = Vocabulary.from_dict(manifest["vocab"])
+    fits = _capfiles_fits(torch, cfg, vocab, vids, readable)
+    caption = _capfiles_caption(torch, vids, ck, list(videos), cfg)
+    # Two epochs on random words can teach the model to end every caption at
+    # once; the seeded, untrained weights caption in words, so they are held
+    # too.
+    seeded = root / "seeded_ck"
+    trainer = CaptionTrainer(cfg, vocab)
+    trainer.save_checkpoint(str(seeded), trainer.init_state(), 0, 0.0)
+    del trainer
+    caption_seeded = _capfiles_caption(torch, vids, seeded, list(videos), cfg)
+    refusal = _capfiles_refuse_artifact(torch, vids, root)
+    torch.cuda.synchronize()
+    _require_no_launches("caption files phase", counters)
+    torch.cuda.empty_cache()
+    summary = {"caption_files": {"videos": len(videos), "write_s": write_s,
+                                 "decode_ms_per_video": decode_ms, "corrupt": corrupt,
+                                 "train_cli_s": train_cli_s, "cli_epoch_losses": losses,
+                                 "cli_bleu": float(bleu[0].split(":")[1]), **fits, **caption,
+                                 "seeded_checkpoint": caption_seeded, "vctaot": refusal,
+                                 "launches": 0}, "gpu": gpu}
+    print(json.dumps(summary))
+    print(f"caption files phase: {time.perf_counter() - t0:.1f} s")
+
+
 def _bwd_timing(torch, gen, name, dims) -> dict:
     """One backward entry point at the main path's shape: time by events and
     from a CUDA graph, autograd through the plain version (its forward
@@ -3660,6 +4014,7 @@ def main(argv: list[str]) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         decodes = _files_path(torch, gpu, Path(tmp))
         _worker_path(torch, gpu, Path(tmp), decodes)
+        _caption_files_path(torch, gpu, Path(tmp) / "captions")
     kernels = _kernel_timings(torch, gen, launches, errs, gpu, zoo["served"])
     kernels += _bwd_rows(torch, gen, train_launches, bwd_errs, zoo["trained"])
     print(json.dumps({"kernels": kernels, "gpu": gpu}))

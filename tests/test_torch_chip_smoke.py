@@ -1,8 +1,9 @@
 """CPU tests of ``chip_smoke.py``'s helpers that need no card: the summary
 of nvcc's ``-Xptxas -v`` log it prints after the build, the bound it
 reports beside each kernel, the state_dict layouts its zoo phase writes
-out, the files phase's AVI writer and CLI hold, and the worker phase's
-URL-to-file mapping and local downloader."""
+out, the files phase's AVI writer and CLI hold, the worker phase's
+URL-to-file mapping and local downloader, and the caption files phase's
+videos, annotations, corrupt files and comparisons."""
 
 from __future__ import annotations
 
@@ -354,17 +355,6 @@ def test_caption_stand_ins_are_laid_out_as_vct_lays_them():
         assert all(4 <= t < 10_000 for t in row[1:end])
 
 
-def test_caption_decode_modes_exit_with_the_roadmap_item(capsys):
-    """The CLI's modes that decode video files are not ported: they exit
-    non-zero naming ROADMAP Queue 1 item 3, with no fallback."""
-    from vct_torch.caption.__main__ import main
-
-    for argv in (["--caption_videos", "d", "--model", "m"], ["--video_dir", "d"],
-                 ["--annotations", "a.txt", "--synthetic"]):
-        assert main(argv) != 0
-        assert "ROADMAP Queue 1 item 3" in capsys.readouterr().err
-
-
 @pytest.mark.parametrize("decoder", ["cv2", "native"])
 @pytest.mark.parametrize("size", [(80, 80), (15, 17)])
 def test_files_phase_avi_decodes_to_the_seeded_frames(tmp_path, decoder, size):
@@ -430,3 +420,80 @@ def test_local_downloader_copies_the_url_s_file(tmp_path):
     assert len(seconds) == 1 and seconds[0] >= 0
     with pytest.raises(FileNotFoundError):
         download("https://www.tiktok.com/@user/video/3", str(dst))
+
+
+# ---------------------------------------------------------------------------
+# the caption files phase
+
+
+@pytest.fixture
+def small_capfiles(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "CAPFILES_VIDEOS", 3)
+    monkeypatch.setattr(chip_smoke, "CAPFILES_FRAMES", (8, 40))
+    monkeypatch.setattr(chip_smoke, "CAPFILES_HW", (24, 32))
+
+
+def test_caption_files_annotations_and_corrupt_files(tmp_path, small_capfiles):
+    """Two captions a file, words of the stand-in vocabulary, the readable
+    videos first; the readable annotations leave the corrupt files out; both
+    corrupt files exist and fail the port's extraction."""
+    pytest.importorskip("cv2")
+    from vct_torch.caption import data
+
+    videos, ann, readable = chip_smoke._capfiles_write(tmp_path)
+    names = list(videos) + list(chip_smoke.CAPFILES_CORRUPT)
+    pairs, _ = data.preprocess_annotations(str(ann))
+    assert [n for n, _ in pairs] == [n for n in names for _ in range(2)]
+    vocab = chip_smoke._caption_vocab()
+    for _, caption in pairs:
+        words = caption.split()
+        assert 5 <= len(words) <= 12 and all(vocab[w] >= 4 for w in words)
+    kept, _ = data.preprocess_annotations(str(readable))
+    assert kept == [p for p in pairs if p[0] in videos]
+    for name, frames in videos.items():
+        assert 8 <= len(frames) <= 40 and frames.shape[1:] == (24, 32, 3)
+        assert (tmp_path / "videos" / f"{name}.avi").is_file()
+    errors = []
+    for name in chip_smoke.CAPFILES_CORRUPT:
+        with pytest.raises((OSError, ValueError)) as e:
+            data.extract_frames_interval(str(tmp_path / "videos" / f"{name}.avi"), 30, 224)
+        errors.append(e.type)
+    assert errors == [OSError, ValueError]  # not opened; opened with no whole frame
+
+
+@pytest.mark.parametrize("target", [5, 30])
+def test_caption_files_expected_frames_are_what_extraction_gives(tmp_path, small_capfiles,
+                                                                  target):
+    """BGR, every (n // target)-th frame, cv2's resize, the last frame
+    repeated: the port's extract_frames_interval on the written AVI files."""
+    pytest.importorskip("cv2")
+    import numpy as np
+
+    from vct_torch.caption import data
+
+    videos, _, _ = chip_smoke._capfiles_write(tmp_path)
+    for name, frames in videos.items():
+        got = data.extract_frames_interval(str(tmp_path / "videos" / f"{name}.avi"), target, 16,
+                                           as_uint8=True)
+        want = chip_smoke._interval_frames(frames, target, 16)
+        assert np.array_equal(got, want), name
+    rgb = np.zeros((3, 4, 4, 3), np.uint8)
+    rgb[..., 0] = np.arange(3)[:, None, None]  # red channel = frame index
+    want = chip_smoke._interval_frames(rgb, 2, 4)
+    assert want.shape == (2, 4, 4, 3) and (want[..., 2] == [[[0]], [[1]]]).all()
+    assert (chip_smoke._interval_frames(rgb, 5, 4)[..., 2][:, 0, 0] == [0, 1, 2, 2, 2]).all()
+
+
+def test_caption_files_cli_lines_and_caption_hold():
+    text = ("Vocabulary size: 9; dataset: 4 clips (lazy)\n"
+            "Epoch [1/2], Loss: 4.25\nCheckpoint saved at epoch 1\n"
+            "Epoch [2/2], Loss: 3.5\n[4.25, 3.5]\n"
+            "v00.avi Generated Caption: w1 w2\nv01.avi Generated Caption: \n")
+    assert chip_smoke._epoch_losses(text) == [4.25, 3.5]
+    got = chip_smoke._generated_captions(text)
+    assert got == {"v00.avi": "w1 w2", "v01.avi": ""}
+    chip_smoke._hold_generated("t", got, dict(got))
+    with pytest.raises(AssertionError, match=r"differ for \['v01.avi'\]"):
+        chip_smoke._hold_generated("t", got, {**got, "v01.avi": "w3"})
+    with pytest.raises(AssertionError, match="v02.avi"):
+        chip_smoke._hold_generated("t", got, {**got, "v02.avi": "w3"})

@@ -312,7 +312,7 @@ def test_load_model_refuses_other_frameworks_and_mismatched_weights(tmp_path):
     path = save_checkpoint(str(tmp_path / "ck"), model.state_dict(), cfg, ["a", "b", "c", "d"])
     manifest = json.loads((tmp_path / "ck" / "manifest.json").read_text())
     (tmp_path / "ck" / "manifest.json").write_text(json.dumps({**manifest, "framework": "vct"}))
-    with pytest.raises(ValueError, match="Queue 1 item 4"):
+    with pytest.raises(ValueError, match="python convert_vct_checkpoint.py SRC DST"):
         load_model(path, device="cpu")
     state_dict, _, _, _ = load_checkpoint(save_checkpoint(path, model.state_dict(), cfg, ["a"]))
     bad = copy.copy(state_dict)

@@ -96,6 +96,28 @@ def random_variables(model, videos, captions, seed: int = 0, attention_gain: flo
     return jax.tree_util.tree_map_with_path(make, shapes)
 
 
+def vct_state(trainer, variables):
+    """vct's CaptionState over ``variables`` for ``trainer`` (no Flax init)."""
+    params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
+    return vct_train.CaptionState(
+        step=jnp.zeros((), jnp.int32), params=params,
+        extra_vars={k: jax.tree_util.tree_map(jnp.asarray, v) for k, v in variables.items()
+                    if k != "params"},
+        opt_state=trainer._tx.init(params), rng=jax.random.PRNGKey(0))
+
+
+def write_video(path, frames: int, rng, size: int, fourcc: str = "mp4v"):
+    """``frames`` seeded noise frames of size x size written by this host's
+    cv2 (mp4v .mp4 as tests/test_caption_stream.py writes them, or MJPG
+    .avi)."""
+    import cv2
+
+    w = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*fourcc), 10.0, (size, size))
+    for _ in range(frames):
+        w.write(rng.randint(0, 256, (size, size, 3), np.uint8))
+    w.release()
+
+
 def pair(kind: str, seed: int = 0, **extra):
     """(vct model, its variables, the port's model holding the same weights
     on the CPU, the port's config) for ``kind``."""

@@ -1,11 +1,17 @@
-"""Captioning entry point: ``python -m vct_torch.caption --synthetic
-[--device cpu] [...]``, the port of ``vct/caption/__main__.py``.
+"""Captioning entry point, the port of ``vct/caption/__main__.py``:
 
-Build the vocabulary, train teacher-forced with per-epoch checkpoints and
-resume, then beam-search the clips with the 'Average BLEU score' print.
-``--synthetic`` runs the whole loop on seeded random clips. The modes that
-decode video files (``--video_dir/--annotations``, ``--caption_videos``)
-are not ported yet (ROADMAP Queue 1 item 3) and exit non-zero.
+    python -m vct_torch.caption --video_dir DIR --annotations FILE [--eval] [...]
+    python -m vct_torch.caption --caption_videos DIR --model CKPT [--beam_width K]
+    python -m vct_torch.caption --synthetic [...]
+
+Training builds the vocabulary from the annotation file's captions, trains
+teacher-forced with per-epoch checkpoints and resume, the clips decoded a
+batch at a time from the video files (``LazyCaptionLoader``), then with
+``--eval`` beam-searches them with the 'Average BLEU score' print.
+``--caption_videos`` captions a directory of videos from a trained
+checkpoint (``vct_torch.caption.infer``). ``--synthetic`` runs the training
+loop on seeded random clips. Everything runs on the card unless ``--device
+cpu`` is given.
 """
 
 from __future__ import annotations
@@ -14,14 +20,12 @@ import sys
 
 import numpy as np
 
-from vct_torch.caption.data import encode_caption
+from vct_torch.caption.data import LazyCaptionLoader, encode_caption, preprocess_annotations
 from vct_torch.caption.train import CaptionTrainer
 from vct_torch.caption.vocab import Vocabulary, tokenize_caption
 from vct_torch.core.config import CaptionConfig
 
 SENTENCES = ["a man is cooking", "a dog runs fast", "a man runs"]
-NOT_PORTED = ("{} decodes video files, which vct_torch does not do yet (ROADMAP Queue 1 "
-              "item 3); run python -m vct_torch.caption --synthetic")
 
 
 def main(argv=None) -> int:
@@ -43,13 +47,38 @@ def main(argv=None) -> int:
             return True
         return False
 
-    for mode in ("--caption_videos", "--video_dir", "--annotations"):
-        if mode in argv:
-            print(NOT_PORTED.format(mode), file=sys.stderr)
+    # Captioning a directory from a trained checkpoint (beam_search.py:552-570's
+    # "Generated Caption:" loop). It branches before any training flag is
+    # consumed, so a stray --eval or --video_dir here is an unknown argument.
+    caption_videos_dir = grab("--caption_videos")
+    if caption_videos_dir is not None:
+        model_path = grab("--model")
+        beam = grab("--beam_width")
+        video_ext = grab("--video_ext")
+        height = grab("--height")
+        width = grab("--width")
+        device = grab("--device")  # default: the card
+        if argv:
+            print(f"Unknown arguments: {argv}")
             return 2
+        if not model_path:
+            print("usage: python -m vct_torch.caption --caption_videos DIR --model CKPT "
+                  "[--beam_width K] [--video_ext .mp4] [--height 224] [--width 224] "
+                  "[--device cpu]")
+            return 2
+        from vct_torch.caption.infer import caption_directory
+
+        caption_directory(model_path, caption_videos_dir,
+                          beam_width=int(beam) if beam else None, video_ext=video_ext,
+                          height=int(height) if height else None,
+                          width=int(width) if width else None, device=device)
+        return 0
+
     synthetic = has("--synthetic")
-    has("--eval")  # accepted: the synthetic run always evaluates, as vct's does
+    do_eval = has("--eval")
     feature_cache = has("--feature_cache")
+    video_dir = grab("--video_dir")
+    annotations_path = grab("--annotations")
     device = grab("--device")  # default: the card
     cfg = CaptionConfig(
         model_kind=grab("--model_kind", "s2vt"),
@@ -72,9 +101,30 @@ def main(argv=None) -> int:
         print(f"Unknown arguments: {argv}")
         return 2
     if not synthetic:
-        print("usage: python -m vct_torch.caption --synthetic [--device cpu] [--epochs N] "
-              "[--beam_width K] [--eval] [--model_kind s2vt|transformer|v1_lstm|v1_gru] ...")
-        return 2
+        if not (video_dir and annotations_path):
+            print("usage: python -m vct_torch.caption --video_dir DIR --annotations FILE "
+                  "[--epochs N] [--beam_width K] [--eval] [--synthetic] [--device cpu] "
+                  "[--model_kind s2vt|transformer|v1_lstm|v1_gru] ...")
+            return 2
+        _, sentences = preprocess_annotations(annotations_path)
+        vocab = Vocabulary(cfg.freq_threshold)
+        vocab.build_vocabulary(sentences)
+        # Out of core: clips decode a batch at a time (uint8, /255 on the device).
+        loader = LazyCaptionLoader(video_dir, annotations_path, vocab, batch_size=batch_size,
+                                   num_frames=cfg.num_frames,
+                                   max_caption_len=cfg.max_caption_len)
+        loader.peek()  # raises when no clip decodes
+        print(f"Vocabulary size: {len(vocab)}; dataset: {loader.num_examples} clips (lazy)")
+        trainer = CaptionTrainer(cfg, vocab, device=device)
+        state, losses = trainer.fit(trainer.init_state(), loader, batch_size=batch_size,
+                                    checkpoint_dir=cfg.checkpoint_dir)
+        print(losses)
+        if do_eval:
+            trainer.evaluate_bleu(state, loader)
+            for words in trainer.caption_videos(state,
+                                                loader.peek()[0].astype(np.float32) / 255.0):
+                print("Caption:", " ".join(words))
+        return 0
 
     vocab = Vocabulary(cfg.freq_threshold)
     vocab.build_vocabulary(SENTENCES)

@@ -16,8 +16,9 @@ A checkpoint directory holds
 
 each written to a temporary name and swapped in (the manifest last), as
 ``vct_torch.train.checkpoint`` writes; a resumed run reproduces the
-uninterrupted one bit for bit. ``vct``'s Orbax caption checkpoints are not
-read (ROADMAP Queue 1 item 4).
+uninterrupted one bit for bit. ``vct``'s Orbax caption checkpoints are
+refused; ``python convert_vct_checkpoint.py SRC DST``, run where ``vct``
+runs, converts one into this layout.
 """
 
 from __future__ import annotations

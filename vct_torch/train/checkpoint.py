@@ -65,8 +65,8 @@ def _read_manifest(path: str, name: str) -> dict:
     written_by = manifest.get("framework")
     if written_by != FRAMEWORK:
         # vct's model manifests say "vct"; its train and caption manifests say nothing.
-        hint = ("; converting a vct (Orbax) checkpoint to vct_torch is not ported yet "
-                "(ROADMAP Queue 1 item 4)" if written_by in ("vct", None) else "")
+        hint = ("; convert a vct (Orbax) checkpoint where vct runs with "
+                "python convert_vct_checkpoint.py SRC DST" if written_by in ("vct", None) else "")
         raise ValueError(f"{path} was written by {written_by!r}, not {FRAMEWORK!r}{hint}")
     return manifest
 
@@ -135,12 +135,16 @@ def train_state_payload(state) -> dict:
 def restore_train_state(saved: dict, state) -> None:
     """Load ``train_state_payload``'s dict into ``state`` in place, every
     model tensor checked (``load_weights``). A generator saved on another
-    device type cannot continue there: it warns and keeps the fresh one."""
+    device type cannot continue there, and a state converted from ``vct``
+    saved none: either warns and keeps the fresh one."""
     load_weights(state.model, saved["model"], "train state")
     state.optimizer.load_state_dict(saved["optimizer"])
     state.step = int(saved["step"])
     gen = saved["generator"]
-    if state.generator is not None and gen is not None:
+    if state.generator is not None and gen is None:
+        print("warning: the train state saved no dropout generator (converted from vct); the "
+              f"{state.generator.device.type} generator keeps its seed")
+    elif state.generator is not None:
         if gen["device"] == state.generator.device.type:
             state.generator.set_state(gen["state"])
         else:
