@@ -238,10 +238,33 @@ line):
     clips/s beside it; ``--caption_videos DIR --model CKPT``: one
     ``Generated Caption:`` line a readable video, equal to ``caption_videos``
     in process on clips decoded apart, seconds a video beside
-    ``caption_videos`` alone; a ``.vctaot`` file as ``--model`` refused
-    naming ROADMAP Queue 1 item 7 (b); every launch counter 0 around the
-    phase;
-18. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
+    ``caption_videos`` alone; a ``vct`` caption artifact as ``--model``
+    refused naming the converter; every launch counter 0 around the phase;
+18. the AOT servable — one-file ``torch.export`` artifacts
+    (``vct_torch.serve.aot``): phase 15's checkpoint exported through
+    ``python -m vct_torch.serve.aot`` dense (``--batches 1,32``) and raw
+    (``--device_sampling sad --raw_len 120``); seeded models exported in
+    process, one bucket of 32 each: the deployed configuration with
+    ``ssim`` sampling (K4), the UCF50 LSTM (K2) and a bidirectional UCF50
+    GRU (K5); phase 17's caption checkpoint through the CLI (``--batches
+    1,4``). Each artifact held to the eager path on the same clips in the
+    same chunks (``classify_videos``, ``device_sample_clips`` and the model,
+    ``beam_search``): probabilities and scores within 1e-5, tokens equal;
+    the launches read around each artifact call (K1 or K4 one a raw chunk,
+    K3 three a forward, K2 one, K5 two a layer; a classifier artifact whose
+    counters stay at 0 fails; the caption artifact launches none); export,
+    MB, load and warmup seconds, B=1 latency and B=32 clips/s beside the
+    eager path's, in turns. Then the deployment CLI with the dense artifact
+    over phase 15's served files (the checkpoint's labels, scores within
+    1e-5), phase 16's worker flow over 3 URLs with MODEL_PATH the artifact
+    (scores within 1e-5 of the checkpoint's forward at the artifact's batch
+    size, B=1, K3's launches counted; the distance to the checkpoint's
+    worker, which pads to B=32, printed), ``--caption_videos`` with the
+    caption artifact (the checkpoint's captions), and a fresh interpreter
+    that loads and serves the dense artifact on the card without importing
+    the model zoo, the config, the host preprocessing or the trainer
+    (``AOT_NO_ZOO``); the phase's seconds;
+19. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
     launches, error, time, plain time, bound (K3 forward and backward also at
     the VideoMamba step, B=32 T=16 D=2048 N=16, ``"config": "videomamba"``,
     launches from phase 13) and, for K2/K5, the design,
@@ -292,6 +315,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -2972,18 +2996,18 @@ def _fault1_check(torch, model) -> dict:
     return {"peak_bytes": peaks, "rise_bytes": rise, "chunk_bytes": chunk}
 
 
-def _worker_path(torch, gpu, root: Path, decodes: bool) -> None:
-    """Phase 16: phase 15's served files behind URLs, served through
-    ``vct_torch.serve.backend`` (a ``ResultStore`` under ``root``, an
-    ephemeral port), the queue and a ``vct_torch.serve.worker.Worker`` on the
-    card with host SAD sampling and a local-copy downloader; a client asks
-    ``GET /get_labels`` for each URL. The first ``WORKER_BACKLOG`` others wait
-    in VIDEO_DIR, so the first message classifies them too and their URLs
-    then come from the store. Launches are read around each message (K3 3 a
-    forward, ceil(N/32) forwards; nothing else), the stored scores held to
-    ``classify_videos`` in process on clips sampled apart from the worker,
-    the store and VIDEO_DIR checked; then the fault 1 check."""
-    import contextlib
+def _serve_urls(torch, root: Path, model_path: str, urls: list, video_dir: Path, db: Path,
+                downloads: list, instrument=None, patches=()) -> tuple:
+    """Phase 16's harness, shared with phase 18: a backend on an ephemeral
+    port with a ``ResultStore`` at ``db``, the queue, and a
+    ``vct_torch.serve.worker.Worker`` on the card with MODEL_PATH
+    ``model_path``, host SAD sampling and a local-copy downloader from
+    ``root/serve`` into ``video_dir`` (each copy's seconds appended to
+    ``downloads``), in threads; a client asks ``GET /get_labels`` for each
+    URL. ``instrument(worker)`` runs after the worker is made and before it
+    starts; ``patches`` are entered around the flow. Returns (the worker,
+    {url: stored row}, [(status, body, seconds)] a URL, ``Worker()``'s
+    seconds, what the flow printed)."""
     import io
     import socket
     import threading
@@ -2991,79 +3015,34 @@ def _worker_path(torch, gpu, root: Path, decodes: bool) -> None:
     import urllib.request
 
     from vct_torch.core.config import ServeConfig
-    from vct_torch.data.ingest import load_dataset_inference
-    from vct_torch.serve import backend, deployment
+    from vct_torch.serve import backend
     from vct_torch.serve import worker as worker_module
     from vct_torch.serve.queue import QueuePull
     from vct_torch.serve.store import ResultStore
 
-    if not decodes:
-        raise AssertionError("phase 16 samples on the host and needs a decoder (cv2)")
-    t0 = time.perf_counter()
     src = root / "serve"
-    names = sorted(p.name for p in src.iterdir())
-    suffix = Path(names[0]).suffix
-    urls = [deployment.construct_url(n) for n in names]
-    backlog = names[1:1 + WORKER_BACKLOG]
-    video_dir = root / "worker_videos"
-    video_dir.mkdir()
-    for name in backlog:
-        (video_dir / name).write_bytes((src / name).read_bytes())
+    suffix = next(src.iterdir()).suffix
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         queue_port = s.getsockname()[1]
-    store = ResultStore(str(root / "results.db"))
-    cfg = ServeConfig(model_path=str(root / "ck"), sampling_method="sad", sequence_length=T,
+    store = ResultStore(str(db))
+    cfg = ServeConfig(model_path=model_path, sampling_method="sad", sequence_length=T,
                       video_dir=str(video_dir), queue_port=queue_port,
                       backend_host="127.0.0.1", backend_port=0, db_path=store.path)
     server = backend.make_server(cfg, store=store, poll_timeout=WORKER_POLL_S)
     base = f"http://127.0.0.1:{server.server_address[1]}"
     cfg = dataclasses.replace(cfg, backend_base_url=base)
-    downloads = []
+    log = io.StringIO()
     t_load = time.perf_counter()
-    w = worker_module.Worker(cfg, downloader=_local_downloader(src, suffix, downloads))
+    with contextlib.redirect_stdout(log):
+        w = worker_module.Worker(cfg, downloader=_local_downloader(src, suffix, downloads))
     load_s = time.perf_counter() - t_load
     w.pull = QueuePull(host="127.0.0.1", port=queue_port)
     w.pull.bind()
-
-    counters = _serve_counters()
-    records = []
-
-    def timed(key, fn):
-        def call(*args, **kwargs):
-            t = time.perf_counter()
-            out = fn(*args, **kwargs)
-            records[-1][key] = time.perf_counter() - t
-            if key == "forward_s":
-                records[-1]["clips"], records[-1]["names"] = np.array(args[1]), list(args[2])
-            return out
-
-        return call
-
-    callback = w.callback
-
-    def counted(url):
-        for fn in counters.values():
-            fn.launches = 0
-        records.append({"url": url})
-        t = time.perf_counter()
-        try:
-            callback(url)
-        finally:
-            torch.cuda.synchronize()
-            records[-1]["callback_s"] = time.perf_counter() - t
-            records[-1]["launches"] = {n: fn.launches for n, fn in counters.items()}
-            records[-1]["download_s"] = downloads[-1] if downloads else None
-
-    w.callback = counted
-    w._already_classified = timed("check_s", w._already_classified)
-    log = io.StringIO()
+    if instrument is not None:
+        instrument(w)
     replies, server_thread = [], threading.Thread(target=server.serve_forever, daemon=True)
     worker_thread = threading.Thread(target=w.run, daemon=True)
-    patches = [mock.patch.object(worker_module, name, timed(key, getattr(worker_module, name)))
-               for name, key in (("load_dataset_inference", "decode_select_s"),
-                                 ("classify_and_display", "forward_s"),
-                                 ("post_results", "post_s"))]
     try:
         with contextlib.ExitStack() as stack:
             for patch in patches:
@@ -3085,15 +3064,85 @@ def _worker_path(torch, gpu, root: Path, decodes: bool) -> None:
         server.server_close()
         if server_thread.ident is not None:
             server_thread.join(timeout=30)
+    torch.cuda.synchronize()
     if worker_thread.is_alive() or server_thread.is_alive():
-        raise AssertionError("phase 16: the worker or the backend did not stop")
+        raise AssertionError(f"MODEL_PATH={model_path}: the worker or the backend did not stop")
+    return w, {r["url"]: r for r in store.all()}, replies, load_s, log.getvalue()
+
+
+def _worker_path(torch, gpu, root: Path, decodes: bool) -> None:
+    """Phase 16: phase 15's served files behind URLs, served through
+    ``vct_torch.serve.backend`` (a ``ResultStore`` under ``root``, an
+    ephemeral port), the queue and a ``vct_torch.serve.worker.Worker`` on the
+    card with host SAD sampling and a local-copy downloader; a client asks
+    ``GET /get_labels`` for each URL. The first ``WORKER_BACKLOG`` others wait
+    in VIDEO_DIR, so the first message classifies them too and their URLs
+    then come from the store. Launches are read around each message (K3 3 a
+    forward, ceil(N/32) forwards; nothing else), the stored scores held to
+    ``classify_videos`` in process on clips sampled apart from the worker,
+    the store and VIDEO_DIR checked; then the fault 1 check."""
+    from vct_torch.data.ingest import load_dataset_inference
+    from vct_torch.serve import deployment
+    from vct_torch.serve import worker as worker_module
+
+    if not decodes:
+        raise AssertionError("phase 16 samples on the host and needs a decoder (cv2)")
+    t0 = time.perf_counter()
+    src = root / "serve"
+    names = sorted(p.name for p in src.iterdir())
+    suffix = Path(names[0]).suffix
+    urls = [deployment.construct_url(n) for n in names]
+    backlog = names[1:1 + WORKER_BACKLOG]
+    video_dir = root / "worker_videos"
+    video_dir.mkdir()
+    for name in backlog:
+        (video_dir / name).write_bytes((src / name).read_bytes())
+    downloads = []
+    counters = _serve_counters()
+    records = []
+
+    def timed(key, fn):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            records[-1][key] = time.perf_counter() - t
+            if key == "forward_s":
+                records[-1]["clips"], records[-1]["names"] = np.array(args[1]), list(args[2])
+            return out
+
+        return call
+
+    def instrument(w):
+        callback = w.callback
+
+        def counted(url):
+            for fn in counters.values():
+                fn.launches = 0
+            records.append({"url": url})
+            t = time.perf_counter()
+            try:
+                callback(url)
+            finally:
+                torch.cuda.synchronize()
+                records[-1]["callback_s"] = time.perf_counter() - t
+                records[-1]["launches"] = {n: fn.launches for n, fn in counters.items()}
+                records[-1]["download_s"] = downloads[-1] if downloads else None
+
+        w.callback = counted
+        w._already_classified = timed("check_s", w._already_classified)
+
+    patches = [mock.patch.object(worker_module, name, timed(key, getattr(worker_module, name)))
+               for name, key in (("load_dataset_inference", "decode_select_s"),
+                                 ("classify_and_display", "forward_s"),
+                                 ("post_results", "post_s"))]
+    w, rows, replies, load_s, log = _serve_urls(torch, root, str(root / "ck"), urls, video_dir,
+                                                root / "results.db", downloads, instrument,
+                                                patches)
     said = ("Processing message", "Final data shape", "Keeping", "Dropping", "Deleted",
             "Error", "Failed", "No videos")
-    print("\n".join(f"  | {line}" for line in log.getvalue().splitlines()
-                    if line.startswith(said)))
+    print("\n".join(f"  | {line}" for line in log.splitlines() if line.startswith(said)))
 
     # the client's labels, the store, VIDEO_DIR
-    rows = {r["url"]: r for r in store.all()}
     if [r[0] for r in replies] != [200] * len(urls) or sorted(rows) != sorted(urls):
         raise AssertionError(f"phase 16: replies {[r[:2] for r in replies]}, stored {sorted(rows)}")
     for url, (_, body, _) in zip(urls, replies):
@@ -3384,20 +3433,24 @@ def _capfiles_caption(torch, vids: Path, ck: Path, names: list, cfg) -> dict:
 
 
 def _capfiles_refuse_artifact(torch, vids: Path, root: Path) -> str:
-    """A ``.vctaot`` file as ``--model`` must raise naming ROADMAP Queue 1
-    item 7 (b); returns the message."""
+    """A ``vct`` caption artifact (StableHLO for JAX) as ``--model`` must
+    raise naming the converter; returns the message."""
+    import zipfile
+
     from vct_torch.caption.__main__ import main
 
     art = root / "captioner.vctaot"
-    art.write_bytes(b"a compiled caption artifact")
+    with zipfile.ZipFile(art, "w") as zf:
+        zf.writestr("manifest.json", json.dumps({"format": "vct-aot-caption-v1",
+                                                 "platform": "tpu"}))
     try:
         _run_cli(torch, main, ["--caption_videos", str(vids), "--model", str(art)])
     except ValueError as e:
-        if "ROADMAP Queue 1 item 7 (b)" not in str(e):
+        if "convert_vct_checkpoint.py SRC DST" not in str(e):
             raise
-        print(f"--caption_videos with a .vctaot --model: {e}")
+        print(f"--caption_videos with a vct .vctaot --model: {e}")
         return str(e)
-    raise AssertionError("--caption_videos took a .vctaot file as --model")
+    raise AssertionError("--caption_videos took a vct artifact as --model")
 
 
 def _caption_files_path(torch, gpu, root: Path) -> None:
@@ -3496,6 +3549,409 @@ def _caption_files_path(torch, gpu, root: Path) -> None:
                                  "launches": 0}, "gpu": gpu}
     print(json.dumps(summary))
     print(f"caption files phase: {time.perf_counter() - t0:.1f} s")
+
+
+# The AOT phase: one-file torch.export artifacts (vct_torch.serve.aot) of
+# phase 15's trained checkpoint, of seeded models for the kernels that
+# checkpoint does not reach, and of phase 17's caption checkpoint, each held
+# to the eager path on the same clips in the same process, the kernels'
+# launches read around every artifact call; then the artifact through the
+# deployment CLI, the worker and directory captioning.
+AOT_TOL = 1e-5  # artifact against eager, same clips, same chunks
+AOT_RAW_LEN = 2 * T  # one 120-frame raw video a row
+AOT_BATCH = 32
+AOT_WORKER_URLS = 3
+AOT_CAPTION_BUCKETS = "1,4"
+# Modules a classifier artifact's server must not import: the model zoo,
+# the config, the host-side preprocessing and the trainer.
+AOT_NO_ZOO = ("vct_torch.models", "vct_torch.core.config", "vct_torch.data.preprocess",
+              "vct_torch.train")
+
+
+def _aot_counted(torch, fn, *args):
+    """(fn(*args), the kernels' launches during the call)."""
+    counters = _serve_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, {n: c.launches for n, c in counters.items()}
+
+
+def _aot_expect(launches: dict, want: dict, label: str) -> None:
+    """Fail unless the launches are ``want`` (every other counter 0) and at
+    least one kernel launched: an artifact whose counters stay at 0 would
+    hold a plain version."""
+    full = dict.fromkeys(launches, 0) | want
+    if launches != full or not any(launches.values()):
+        raise AssertionError(f"{label}: launches {_nonzero(launches)} != {_nonzero(full)}")
+
+
+def _aot_time(torch, fn, reps: int = 3) -> list:
+    """Seconds of ``fn()`` (which ends on the host), ``reps`` times, sorted."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)
+
+
+def _aot_load(path: Path, export_s: float) -> tuple:
+    """(servable, load seconds, warmup seconds, file MB), printed beside the
+    export's seconds."""
+    import zipfile
+
+    import torch
+
+    from vct_torch.serve.aot import AotServable, CaptionAotServable
+
+    with zipfile.ZipFile(path) as zf:
+        manifest = json.loads(zf.read("manifest.json"))
+    cls = CaptionAotServable if "vocab" in manifest else AotServable
+    t0 = time.perf_counter()
+    sv = cls.load(str(path))
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sv.warmup()
+    torch.cuda.synchronize()
+    warm_s, mb = time.perf_counter() - t0, path.stat().st_size / 1e6
+    print(f"aot {path.name}: export {export_s:.2f} s, {mb:.2f} MB, load {load_s:.2f} s, "
+          f"warmup {warm_s:.3f} s")
+    return sv, load_s, warm_s, mb
+
+
+def _aot_eager(torch, model, seq_len: int, method):
+    """The eager forward an artifact holds, for ``aot._run_bucketed``: the
+    softmax of the model, after ``device_sample_clips`` where ``method``."""
+    from vct_torch.data.preprocess import device_sample_clips
+
+    def forward(*args):
+        x = (device_sample_clips(args[0], seq_len, method=method, lengths=args[1])
+             if method else args[0])
+        return torch.softmax(model(x).to(torch.float32), dim=-1)
+
+    return forward
+
+
+def _aot_classifier(torch, label, sv, model, seq_len, method, want: dict, arrays, bench) -> dict:
+    """Hold one classifier artifact to its eager forward on ``arrays`` (the
+    same chunks, through ``aot._run_bucketed``), its launches ``want`` a
+    chunk; then time it and the eager path at B=32 (``bench``) and, where
+    it has a bucket of 1, at B=1 (the first row), in turns."""
+    from vct_torch.serve import aot
+
+    eager = _aot_eager(torch, model, seq_len, method)
+    call = sv.classify_raw if method else sv.classify
+    chunks = -(-len(arrays[0]) // sv.buckets[-1])
+    got, launches = _aot_counted(torch, call, *arrays)
+    _aot_expect(launches, {k: v * chunks for k, v in want.items()}, label)
+    stage = aot._make_stager(sv.device)
+
+    def run_eager(arrs):
+        with torch.inference_mode():
+            (p,) = aot._run_bucketed({b: eager for b in sv.buckets}, list(sv.buckets), arrs,
+                                     stage, empty=(np.zeros((0, 1), np.float32),))
+        return p
+
+    ref = run_eager(arrays)
+    err = float(np.abs(got - ref).max())
+    if not err <= AOT_TOL:
+        raise AssertionError(f"{label}: artifact differs from the eager path by {err}")
+    row = {"max_prob_err": err, "launches_per_chunk": _nonzero(want), "rows": len(ref)}
+    sizes = [n for n in (1, AOT_BATCH) if n in sv.buckets]
+    for n in sizes:
+        arrs = tuple(a[:n] for a in bench)
+        art_s = _aot_time(torch, lambda: call(*arrs))
+        eager_s = _aot_time(torch, lambda: run_eager(arrs))
+        if n == 1:
+            row["b1_latency_s"], row["b1_eager_latency_s"] = art_s, eager_s
+        else:
+            row["b32_clips_per_s"] = [n / t for t in art_s]
+            row["b32_eager_clips_per_s"] = [n / t for t in eager_s]
+    print(f"aot {label}: within {err} of the eager path over {len(ref)} rows, launches "
+          f"{_nonzero(launches)} ({chunks} chunks); "
+          + "; ".join(f"{k} {[round(x, 5) for x in v]}" for k, v in row.items()
+                      if isinstance(v, list)))
+    return row
+
+
+def _aot_cli(torch, argv: list, path: Path) -> float:
+    """``python -m vct_torch.serve.aot`` in process: its seconds."""
+    from vct_torch.serve.aot import main
+
+    rc, text, secs = _run_cli(torch, main, [*argv, "--out", str(path)])
+    print(f"  | {text.strip()}")
+    if rc != 0 or not text.startswith(f"exported {path}"):
+        raise AssertionError(f"python -m vct_torch.serve.aot {argv}: rc {rc}, {text!r}")
+    return secs
+
+
+@contextlib.contextmanager
+def _aot_no_zoo(path: Path):
+    """Around the block, a fresh interpreter loads the dense artifact,
+    classifies one clip on the card and lists its modules; after it, the
+    check fails if any of AOT_NO_ZOO is among them, and the yielded dict
+    holds the port's modules the process imported. The process is killed if
+    the block raises."""
+    here = Path(__file__).resolve().parent
+    code = (f"import json, sys; sys.path.insert(0, {str(here)!r})\n"
+            "import numpy as np\n"
+            "from vct_torch.serve.aot import AotServable\n"
+            f"sv = AotServable.load({str(path)!r})\n"
+            "p = sv.classify(np.zeros((1,) + sv.input_shape, np.float32))\n"
+            "assert p.shape == (1, len(sv.class_names)) and sv.device.type == 'cuda'\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=here)
+    result: dict = {}
+    try:
+        yield result
+        out, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"aot no-zoo subprocess: rc {proc.returncode}\n{err[-3000:]}")
+        mods = json.loads(out.strip().splitlines()[-1])
+        zoo = sorted(m for m in mods if m.startswith(AOT_NO_ZOO))
+        result["modules"] = sorted(m for m in mods if m.startswith("vct_torch"))
+        print(f"aot no-zoo: a fresh process loaded and served the dense artifact on the card in "
+              f"{time.perf_counter() - t0:.2f} s importing {result['modules']}")
+        if zoo:
+            raise AssertionError(f"serving an artifact imported {zoo}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def _aot_deployment_cli(torch, root: Path, ck: str, dense: Path, names: list) -> dict:
+    """``python -m vct_torch.serve.deployment`` over phase 15's served files
+    with the checkpoint and with the dense artifact: the same labels, scores
+    within AOT_TOL (both run one zero-padded B=32 chunk)."""
+    from vct_torch.serve import deployment
+
+    cli = {}
+    for key, model_path in (("checkpoint", ck), ("artifact", str(dense))):
+        rc, text, secs = _run_cli(torch, deployment.main,
+                                  ["--model", model_path, "--videos", str(root / "serve")])
+        if rc != 0:
+            raise AssertionError(f"deployment CLI --model {key}: rc {rc}")
+        cli[key] = ({r["video_name"]: r for r in _cli_results(text)}, secs)
+    (by_ck, ck_s), (by_art, art_s) = cli["checkpoint"], cli["artifact"]
+    if sorted(by_art) != names or any(by_art[n]["labels"] != by_ck[n]["labels"] for n in names):
+        raise AssertionError("deployment CLI: the artifact's labels are not the checkpoint's")
+    err = max(float(np.abs(np.asarray(by_art[n]["scores"]) - by_ck[n]["scores"]).max())
+              for n in names)
+    if not err <= AOT_TOL:
+        raise AssertionError(f"deployment CLI: artifact scores differ by {err}")
+    print(f"aot deployment CLI --model dense.vctaot: {len(by_art)} videos, labels of the "
+          f"checkpoint, scores within {err}; {art_s:.2f} s against the checkpoint's {ck_s:.2f} s")
+    return {"max_score_err": err, "artifact_s": art_s, "checkpoint_s": ck_s}
+
+
+def _aot_worker_hold(torch, root: Path, dense: Path, model, class_names: list, names: list,
+                     clips: dict) -> dict:
+    """Phase 16's flow over AOT_WORKER_URLS URLs with MODEL_PATH the dense
+    artifact. Each message brings one video, which the artifact runs in its
+    bucket of 1 where phase 16's checkpoint worker ran a zero-padded B=32
+    forward; the bf16 convolutions round differently at the two batch
+    sizes, so the stored scores are held to the checkpoint's forward at the
+    artifact's batch size (``clips``: the host-sampled clips by name), and
+    their distance to the scores phase 16 stored is printed."""
+    from vct_torch.serve.deployment import classify_videos, construct_url
+    from vct_torch.serve.store import ResultStore
+
+    urls = [construct_url(n) for n in names[:AOT_WORKER_URLS]]
+    ck_rows = {r["url"]: r for r in ResultStore(str(root / "results.db")).all()}
+    counters = _serve_counters()
+
+    def zero(_worker):
+        for c in counters.values():
+            c.launches = 0
+
+    video_dir = root / "aot_worker_videos"
+    video_dir.mkdir()
+    _, art_rows, _, _, _ = _serve_urls(torch, root, str(dense), urls, video_dir,
+                                       root / "aot_worker.db", [], zero)
+    launches = {n: c.launches for n, c in counters.items()}
+    if sorted(art_rows) != sorted(urls):
+        raise AssertionError(f"aot worker: stored {sorted(art_rows)}")
+    _aot_expect(launches, {"selective_scan": DEPLOYED["rnn_layer"] * len(urls)}, "aot worker")
+    err = to_ck = 0.0
+    same = 0
+    for name, url in zip(names, urls):
+        p = classify_videos(model, clips[name][None], batch_size=1)[0]
+        order = np.argsort(-p)
+        row = art_rows[url]
+        if row["labels"] != [class_names[i] for i in order]:
+            raise AssertionError(f"aot worker: labels of {url} differ from the checkpoint's")
+        err = max(err, float(np.abs(np.asarray(row["scores"]) - p[order]).max()))
+        to_ck = max(to_ck, float(np.abs(np.asarray(row["scores"]) - ck_rows[url]["scores"]).max()))
+        same += row["labels"] == ck_rows[url]["labels"]
+    if not err <= AOT_TOL:
+        raise AssertionError(f"aot worker: stored scores differ by {err}")
+    print(f"aot worker MODEL_PATH=dense.vctaot: {len(urls)} URLs, scores within {err} of the "
+          f"checkpoint's at B=1; against phase 16's checkpoint worker (B=32) within {to_ck}, "
+          f"{same}/{len(urls)} labels equal; launches {_nonzero(launches)}")
+    return {"urls": len(urls), "max_score_err": err, "to_checkpoint_worker": to_ck,
+            "labels_equal": same}
+
+
+def _aot_caption_videos(torch, vids: Path, cap_ck: Path, cap_art: Path, hw: list) -> None:
+    """``--caption_videos`` over phase 17's files with the caption
+    checkpoint and with its artifact: the same captions."""
+    from vct_torch.caption.__main__ import main
+
+    captions = {}
+    for key, model_path in (("checkpoint", cap_ck), ("artifact", cap_art)):
+        rc, text, secs = _run_cli(torch, main,
+                                  ["--caption_videos", str(vids), "--model", str(model_path), *hw])
+        captions[key] = (_generated_captions(text), secs)
+        if rc != 0 or not captions[key][0]:
+            raise AssertionError(f"--caption_videos with the {key}: rc {rc}, captioned nothing")
+    _hold_generated("--caption_videos caption.vctaot", captions["artifact"][0],
+                    captions["checkpoint"][0])
+    print(f"aot --caption_videos --model caption.vctaot: {len(captions['artifact'][0])} captions "
+          f"equal to the checkpoint's; {captions['artifact'][1]:.2f} s against "
+          f"{captions['checkpoint'][1]:.2f} s")
+
+
+def _aot_path(torch, gpu, root: Path) -> None:
+    """Phase 18: artifacts of phase 15's checkpoint (dense with two buckets,
+    raw SAD), of seeded models (raw SSIM for K4, the UCF50 LSTM for K2, a
+    bidirectional GRU for K5; one bucket each) and of phase 17's caption
+    checkpoint, each held to the eager path with its launches counted; then
+    the deployment CLI, the worker and ``--caption_videos`` with the
+    artifacts, and the no-zoo import check. Runs under phase 15-17's root."""
+    from vct_torch.caption import data as caption_data
+    from vct_torch.caption.beam import beam_search
+    from vct_torch.caption.train import restore_caption_trainer
+    from vct_torch.core.config import ModelConfig
+    from vct_torch.data.ingest import load_dataset_inference
+    from vct_torch.models import build_model
+    from vct_torch.serve import aot, deployment
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    art = root / "aot"
+    art.mkdir()
+    rng = np.random.RandomState(180)
+    ck = str(root / "ck")
+    rows, files = {}, {}
+
+    # phase 15's checkpoint: dense (two buckets) and raw SAD, through the CLI
+    dense, raw_sad = art / "dense.vctaot", art / "sad.vctaot"
+    export_s = {"dense": _aot_cli(torch, ["--model", ck, "--batches", f"1,{AOT_BATCH}"], dense),
+                "sad": _aot_cli(torch, ["--model", ck, "--device_sampling", "sad", "--raw_len",
+                                        str(AOT_RAW_LEN)], raw_sad)}
+    model, class_names, _ = deployment.load_model(ck)
+    served_names = sorted(p.name for p in (root / "serve").iterdir())
+    served_clips, sampled_names = load_dataset_inference(str(root / "serve"), "sad", T, H, W,
+                                                         decode_workers=1)
+    served_raw = np.zeros((len(FILES_SERVED), AOT_RAW_LEN, H, W, 3), np.uint8)
+    for i, frames in enumerate(_synthetic_videos(FILES_SERVED, seed=151)):
+        served_raw[i, :len(frames)] = frames
+    served_lens = np.asarray(FILES_SERVED, np.int32)
+    bench_clips = rng.random_sample((AOT_BATCH, T, H, W, 3)).astype(np.float32)
+    bench_raw = rng.randint(0, 256, (AOT_BATCH, AOT_RAW_LEN, H, W, 3), dtype=np.uint8)
+    bench_lens = rng.randint(T + 1, AOT_RAW_LEN + 1, size=AOT_BATCH).astype(np.int32)
+    scan = {"selective_scan": DEPLOYED["rnn_layer"]}
+    for key, path, method, want, arrays, bench in (
+            ("dense", dense, None, scan, (served_clips,), (bench_clips,)),
+            ("sad", raw_sad, "sad", scan | {"pair_scores": 1}, (served_raw, served_lens),
+             (bench_raw, bench_lens))):
+        sv, load_s, warm_s, mb = _aot_load(path, export_s[key])
+        rows[key] = {"export_s": export_s[key], "mb": mb, "load_s": load_s, "warmup_s": warm_s,
+                     **_aot_classifier(torch, f"{key} (phase 15's checkpoint)", sv, model, T,
+                                       method, want, arrays, bench)}
+        files[key] = sv
+    del files["sad"]
+
+    # seeded models for K4, K2 and K5, one bucket each
+    seeded = (("ssim", DEPLOYED, T, "ssim", scan | {"ssim_pair_scores": 1}),
+              ("ucf50_lstm", {**UCF50, "rnn_type": "lstm"}, T_UCF50, None, {"lstm_stack": 1}),
+              ("ucf50_bigru", {**UCF50, "rnn_type": "gru", "bidirectional": True}, T_UCF50, None,
+               {"gru_scan": 2 * UCF50["rnn_layer"]}))
+    for key, cfg, seq_len, method, want in seeded:
+        net = build_model(ModelConfig(**cfg, compute_dtype="bfloat16"), seq_len, seed=18)
+        names = [f"class_{i}" for i in range(ModelConfig(**cfg).num_classes)]
+        path = art / f"{key}.vctaot"
+        t0 = time.perf_counter()
+        aot.export_servable(net, names, (seq_len, H, W, 3), str(path), batch_sizes=(AOT_BATCH,),
+                            device_sampling=method, raw_len=AOT_RAW_LEN if method else None)
+        torch.cuda.synchronize()
+        export = time.perf_counter() - t0
+        sv, load_s, warm_s, mb = _aot_load(path, export)
+        if method:
+            arrays = (bench_raw, bench_lens)
+        else:
+            arrays = (rng.random_sample((AOT_BATCH, seq_len, H, W, 3)).astype(np.float32),)
+        rows[key] = {"export_s": export, "mb": mb, "load_s": load_s, "warmup_s": warm_s,
+                     **_aot_classifier(torch, f"{key} (seeded)", sv, net, seq_len, method, want,
+                                       arrays, arrays)}
+        del sv, net
+        torch.cuda.empty_cache()
+
+    # phase 17's caption checkpoint, through the CLI
+    cap_ck = root / "captions" / "caption_ck"
+    cap_art = art / "caption.vctaot"
+    hw = [a for side in ("--height", "--width") for a in (side, str(CAPTION_HW))]
+    export = _aot_cli(torch, ["--model", str(cap_ck), "--batches", AOT_CAPTION_BUCKETS, *hw],
+                      cap_art)
+    csv, load_s, warm_s, mb = _aot_load(cap_art, export)
+    trainer, state, cfg = restore_caption_trainer(str(cap_ck))
+    vids = root / "captions" / "videos"
+    clips = []
+    for p in sorted(vids.glob("*.avi")):
+        try:
+            clips.append(caption_data.extract_frames_interval(str(p), cfg.num_frames, CAPTION_HW))
+        except (OSError, ValueError):
+            continue
+    clips = np.stack(clips)
+    (tokens, scores), launches = _aot_counted(torch, csv.decode, clips)
+    if _nonzero(launches):
+        raise AssertionError(f"caption artifact: kernels launched on a path that reaches none: "
+                             f"{_nonzero(launches)}")
+
+    def eager_beam(video):
+        return beam_search(state.model, video, beam_width=csv.beam_width, max_len=csv.max_len)
+
+    with torch.inference_mode():
+        want_tokens, want_scores = aot._run_bucketed(
+            {b: eager_beam for b in csv.buckets}, list(csv.buckets), (clips,),
+            aot._make_stager(csv.device), empty=(np.zeros((0, csv.max_len + 1), np.int64),
+                                                 np.zeros((0,), np.float32)))
+    err = float(np.abs(scores - want_scores).max())
+    if not (np.array_equal(tokens, want_tokens) and err <= AOT_TOL):
+        raise AssertionError(f"caption artifact: tokens equal {np.array_equal(tokens, want_tokens)}"
+                             f", scores within {err}")
+    one = clips[:1]
+    cap_row = {"export_s": export, "mb": mb, "load_s": load_s, "warmup_s": warm_s,
+               "max_score_err": err, "tokens_equal": True, "rows": len(clips),
+               "b1_latency_s": _aot_time(torch, lambda: csv.decode(one)),
+               "b1_eager_latency_s": _aot_time(torch, lambda: eager_beam(
+                   torch.from_numpy(one).cuda())[0].cpu())}
+    print(f"aot caption (phase 17's checkpoint): {len(clips)} clips, tokens equal to beam_search, "
+          f"scores within {err}; B=1 {cap_row['b1_latency_s']} s against eager "
+          f"{cap_row['b1_eager_latency_s']} s")
+    rows["caption"] = cap_row
+    del trainer, state
+
+    # the consumers, and the no-zoo check in its own process meanwhile
+    with _aot_no_zoo(dense) as no_zoo:
+        cli = _aot_deployment_cli(torch, root, ck, dense, served_names)
+        worker = _aot_worker_hold(torch, root, dense, model, class_names, served_names,
+                                  dict(zip(sampled_names, served_clips)))
+        _aot_caption_videos(torch, vids, cap_ck, cap_art, hw)
+    modules = no_zoo["modules"]
+    del files, model, csv
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    print(json.dumps({"aot": {**rows, "deployment_cli": cli, "worker": worker,
+                              "no_zoo_modules": modules, "phase_s": secs}, "gpu": gpu}))
+    print(f"aot phase: {secs:.1f} s")
 
 
 def _bwd_timing(torch, gen, name, dims) -> dict:
@@ -4015,6 +4471,7 @@ def main(argv: list[str]) -> int:
         decodes = _files_path(torch, gpu, Path(tmp))
         _worker_path(torch, gpu, Path(tmp), decodes)
         _caption_files_path(torch, gpu, Path(tmp) / "captions")
+        _aot_path(torch, gpu, Path(tmp))
     kernels = _kernel_timings(torch, gen, launches, errs, gpu, zoo["served"])
     kernels += _bwd_rows(torch, gen, train_launches, bwd_errs, zoo["trained"])
     print(json.dumps({"kernels": kernels, "gpu": gpu}))

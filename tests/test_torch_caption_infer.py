@@ -9,13 +9,15 @@ print the same ``Generated Caption:`` lines as vct's on the original, over
 the same cv2-written mp4v files, a corrupt one skipped; the clips go to the
 device one chunk at a time. vct's errors are kept (a missing model, no
 videos, every file skipped, non-square geometry, systemic decode errors),
-and a ``.vctaot`` file is refused naming ROADMAP Queue 1 item 7 (b). Then
+a file that is no artifact is refused as such and a ``vct`` artifact naming
+the converter. Then
 ``--video_dir/--annotations --eval`` trains from the files and prints vct's
 lines.
 """
 
 import json
 import os
+import zipfile
 
 import numpy as np
 import pytest
@@ -131,9 +133,14 @@ def test_caption_directory_keeps_vcts_errors(setup, tmp_path, monkeypatch, case)
     elif case == "vctaot":
         art = tmp_path / "c.vctaot"
         art.write_bytes(b"an artifact")
-        with pytest.raises(ValueError, match=r"ROADMAP Queue 1 item 7 \(b\)"):
+        with pytest.raises(ValueError, match="not a vct-torch-aot-caption-v1 artifact"):
             infer.caption_directory(str(art), str(vids), **kw)
-        with pytest.raises(ValueError, match=r"item 7 \(b\)"):
+        with zipfile.ZipFile(art, "w") as zf:
+            zf.writestr("manifest.json", json.dumps({"format": "vct-aot-caption-v1",
+                                                     "platform": "cpu"}))
+        with pytest.raises(ValueError, match="convert_vct_checkpoint.py SRC DST"):
+            infer.caption_directory(str(art), str(vids), **kw)
+        with pytest.raises(ValueError, match="convert_vct_checkpoint.py SRC DST"):
             cli.main(["--caption_videos", str(vids), "--model", str(art), "--device", "cpu"])
     elif case == "not_square":
         with pytest.raises(ValueError, match="not square"):

@@ -2,8 +2,10 @@
 of nvcc's ``-Xptxas -v`` log it prints after the build, the bound it
 reports beside each kernel, the state_dict layouts its zoo phase writes
 out, the files phase's AVI writer and CLI hold, the worker phase's
-URL-to-file mapping and local downloader, and the caption files phase's
-videos, annotations, corrupt files and comparisons."""
+URL-to-file mapping, local downloader and backend/queue/worker harness,
+the caption files phase's
+videos, annotations, corrupt files and comparisons, and the AOT phase's
+launch rule, eager forward, refusal check and no-zoo list."""
 
 from __future__ import annotations
 
@@ -422,6 +424,52 @@ def test_local_downloader_copies_the_url_s_file(tmp_path):
         download("https://www.tiktok.com/@user/video/3", str(dst))
 
 
+def test_serve_urls_runs_the_worker_flow_and_returns_the_stored_rows(tmp_path, monkeypatch):
+    """Phase 16's harness, which phase 18 shares, on the CPU: a tiny
+    checkpoint behind the backend, the queue and a worker in threads; every
+    URL answered with its stored labels and every confirmed file deleted."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from vct_torch.core.config import Config
+    from vct_torch.models import build_model
+    from vct_torch.serve import deployment, worker
+    from vct_torch.train.checkpoint import save_checkpoint
+
+    pytest.importorskip("cv2")
+    t, hw = 4, 24
+    monkeypatch.setattr(chip_smoke, "T", t)
+    monkeypatch.setattr(worker, "resolve_device", lambda device=None: torch.device("cpu"))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *args, **kwargs: None)
+    cfg = Config().replace(**{"model.num_classes": "3", "model.cnn_backbone": "resnet18",
+                              "model.rnn_type": "lstm", "model.rnn_input_size": "8",
+                              "model.rnn_layer": "1", "data.sequence_length": str(t),
+                              "data.img_height": str(hw), "data.img_width": str(hw),
+                              "data.sampling_method": "sad"})
+    model = build_model(cfg.model, t, device="cpu")
+    save_checkpoint(str(tmp_path / "ck"), model.state_dict(), cfg, ["a", "b", "c"])
+    src, videos = tmp_path / "serve", tmp_path / "videos"
+    src.mkdir()
+    videos.mkdir()
+    rng = np.random.RandomState(0)
+    names = [f"@user_video_{i}.avi" for i in (1, 2)]
+    for name in names:
+        chip_smoke._write_avi(src / name, rng.randint(0, 256, (9, hw, hw, 3), np.uint8))
+    urls = [deployment.construct_url(n) for n in names]
+    seen, downloads = [], []
+    w, rows, replies, load_s, log = chip_smoke._serve_urls(
+        torch, tmp_path, str(tmp_path / "ck"), urls, videos, tmp_path / "results.db",
+        downloads, instrument=seen.append)
+    assert seen == [w] and sorted(rows) == sorted(urls)
+    assert [r[:2] for r in replies] == [(200, {"url": u, "labels": rows[u]["labels"]})
+                                        for u in urls]
+    assert sorted(rows[urls[0]]["labels"]) == ["a", "b", "c"]
+    assert len(downloads) == 2 and load_s > 0 and "Processing message" in log
+    assert os.listdir(videos) == []
+
+
 # ---------------------------------------------------------------------------
 # the caption files phase
 
@@ -497,3 +545,62 @@ def test_caption_files_cli_lines_and_caption_hold():
         chip_smoke._hold_generated("t", got, {**got, "v01.avi": "w3"})
     with pytest.raises(AssertionError, match="v02.avi"):
         chip_smoke._hold_generated("t", got, {**got, "v02.avi": "w3"})
+
+
+@pytest.mark.parametrize("launches,want,ok", [
+    ({"selective_scan": 3, "pair_scores": 1, "lstm_stack": 0}, {"selective_scan": 3,
+                                                                "pair_scores": 1}, True),
+    ({"selective_scan": 0, "pair_scores": 0}, {}, False),  # a plain version in the graph
+    ({"selective_scan": 3, "pair_scores": 0}, {"selective_scan": 3, "pair_scores": 1}, False),
+    ({"selective_scan": 3, "ssim_pair_scores": 1}, {"selective_scan": 3}, False),
+], ids=["as_stated", "all_zero", "one_missing", "one_extra"])
+def test_aot_phase_holds_each_artifact_to_its_launches(launches, want, ok):
+    if ok:
+        chip_smoke._aot_expect(launches, want, "dense")
+    else:
+        with pytest.raises(AssertionError, match="dense: launches"):
+            chip_smoke._aot_expect(launches, want, "dense")
+
+
+def test_aot_phase_eager_forward_is_the_artifacts(monkeypatch):
+    """The eager path an artifact is held to: the model's softmax, after
+    ``device_sample_clips`` for a raw artifact."""
+    import numpy as np
+    import torch
+
+    from vct_torch.data.preprocess import device_sample_clips
+
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Flatten(), torch.nn.Linear(4 * 5 * 5 * 3, 3))
+    raw = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (2, 8, 5, 5, 3),
+                                                            dtype=np.uint8))
+    lens = torch.tensor([8, 6], dtype=torch.int32)
+    with torch.inference_mode():
+        got = chip_smoke._aot_eager(torch, model, 4, "sad")(raw, lens)
+        x = device_sample_clips(raw, 4, method="sad", lengths=lens)
+        assert torch.equal(got, torch.softmax(model(x), dim=-1))
+        dense = chip_smoke._aot_eager(torch, model, 4, None)(x)
+        assert torch.equal(dense, got)
+
+
+def test_caption_files_refusal_names_the_converter(tmp_path, monkeypatch):
+    """Phase 17's check: a vct caption artifact as ``--model`` raises naming
+    the converter (the refusal comes before any device work)."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    vids = tmp_path / "videos"
+    vids.mkdir()
+    (vids / "a.avi").write_bytes(b"unread")
+    msg = chip_smoke._capfiles_refuse_artifact(torch, vids, tmp_path)
+    assert "convert_vct_checkpoint.py SRC DST" in msg and "vct-aot-caption-v1" in msg
+
+
+def test_aot_no_zoo_names_the_model_code_a_server_must_not_import():
+    zoo = chip_smoke.AOT_NO_ZOO
+    for name in ("vct_torch.models", "vct_torch.models.lrcn", "vct_torch.core.config",
+                 "vct_torch.data.preprocess", "vct_torch.train.engine"):
+        assert name.startswith(zoo)
+    for name in ("vct_torch.serve.aot", "vct_torch.ops.selective_scan", "vct_torch.device",
+                 "vct_torch.caption.vocab"):
+        assert not name.startswith(zoo)

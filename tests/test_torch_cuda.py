@@ -1082,3 +1082,84 @@ def test_load_model_serves_a_ported_reference_lrcn_on_the_card(cuda_device, tmp_
         want = model_cpu(sample_decoded_clips(videos, "sad", T, device="cpu"))
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     np.testing.assert_array_equal(probs.argmax(-1), want.argmax(-1).numpy())
+
+
+def _op_cases(dev):
+    """(operator, CUDA args, wrapper whose counter the launch adds to) for
+    each registered kernel operator, at small shapes."""
+    g = torch.Generator().manual_seed(5)
+
+    def f32(*shape):
+        return torch.randn(*shape, generator=g).to(dev)
+
+    clips = torch.from_numpy(_clips((3, 13, 20, 24, 3), seed=5)).to(dev)
+    B, L, D, N, H = 2, 9, 16, 32, 8
+    ops = torch.ops.vct_torch
+    return [
+        (ops.pair_scores, (clips, "sad"), k1_ops.pair_scores),
+        (ops.pair_scores, (clips, "flow"), k1_ops.pair_scores),
+        (ops.ssim_pair_scores, (clips, 3, 255.0), ssim_ops.ssim_pair_scores),
+        (ops.selective_scan, (f32(B, L, D), f32(B, L, D).abs(), -f32(D, N).abs(), f32(B, L, N),
+                              f32(B, L, N), False), scan_ops.selective_scan),
+        (ops.rnn_scan, (f32(B, L, 4 * H), f32(H, 4 * H), f32(4 * H), 4), rnn_ops.lstm_scan),
+        (ops.rnn_scan, (f32(B, L, 3 * H), f32(H, 3 * H), f32(3 * H), 3), rnn_ops.gru_scan),
+        (ops.rnn_stack, (f32(B, L, 4 * H), f32(2, H, 4 * H), f32(2, 4 * H), f32(1, H, 4 * H),
+                         f32(1, 4 * H), 4), rnn_ops.lstm_stack),
+        (ops.rnn_stack, (f32(B, L, 3 * H), f32(2, H, 3 * H), f32(2, 3 * H), f32(1, H, 3 * H),
+                         f32(1, 3 * H), 3), rnn_ops.gru_stack),
+    ]
+
+
+@pytest.mark.parametrize("i", range(8), ids=["pair_scores_sad", "pair_scores_flow", "ssim",
+                                             "selective_scan", "rnn_scan_lstm", "rnn_scan_gru",
+                                             "rnn_stack_lstm", "rnn_stack_gru"])
+def test_operator_cuda_implementation_is_the_counted_kernel(cuda_device, i):
+    """Each operator's CUDA implementation, after NaN was left in shared
+    memory, against its CPU implementation (the plain version) on the same
+    inputs: bit-equal for K1 and K4, 1e-5 for the recurrences; one launch
+    counted on its wrapper, none by the CPU call."""
+    op, args, wrapper = _op_cases(cuda_device)[i]
+    cpu_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+    wrapper.launches = 0
+    want = op(*cpu_args)
+    assert wrapper.launches == 0
+    _build.fill_shared_memory(float("nan"))
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == 1
+    if wrapper in (k1_ops.pair_scores, ssim_ops.ssim_pair_scores):
+        assert torch.equal(got.cpu(), want)
+    else:
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("rnn", ["mamba", "lstm", "bigru"])
+def test_exported_model_on_the_card_launches_each_kernel(cuda_device, rnn, tmp_path):
+    """A tiny LRCN exported on the card with SAD selection baked in: the
+    program runs the kernels (their counters read around one call) and
+    agrees with the eager path bit for bit."""
+    from vct_torch.serve import aot
+
+    heads = {"mamba": dict(rnn_type="mamba", rnn_layer=2),
+             "lstm": dict(rnn_type="lstm", hidden_size=8, rnn_layer=2),
+             "bigru": dict(rnn_type="gru", hidden_size=8, rnn_layer=2, bidirectional=True)}
+    want = {"mamba": (scan_ops.selective_scan, 2), "lstm": (rnn_ops.lstm_stack, 1),
+            "bigru": (rnn_ops.gru_scan, 4)}[rnn]
+    model = build_model(ModelConfig(num_classes=3, cnn_backbone="resnet18", rnn_input_size=8,
+                                    scan_impl="pallas", **heads[rnn]), 4)
+    path = str(tmp_path / "m.vctaot")
+    aot.export_servable(model, ["a", "b", "c"], (4, 32, 32, 3), path, batch_sizes=(2,),
+                        device_sampling="sad", raw_len=8)
+    sv = aot.AotServable.load(path)
+    raw = _clips((2, 8, 32, 32, 3), seed=6)
+    lens = np.array([8, 6], np.int32)
+    for fn in (k1_ops.pair_scores, want[0]):
+        fn.launches = 0
+    got = sv.classify_raw(raw, lens)
+    assert (k1_ops.pair_scores.launches, want[0].launches) == (1, want[1])
+    with torch.inference_mode():
+        x = preprocess.device_sample_clips(torch.from_numpy(raw).to(cuda_device), 4,
+                                           method="sad",
+                                           lengths=torch.from_numpy(lens).to(cuda_device))
+        ref = torch.softmax(model(x).float(), dim=-1).cpu().numpy()
+    np.testing.assert_array_equal(got, ref)

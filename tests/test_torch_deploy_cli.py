@@ -15,6 +15,7 @@ import contextlib
 import io
 import json
 import threading
+import zipfile
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -192,9 +193,8 @@ def test_cli_refusals(served, tmp_path, monkeypatch):
     _, ck_port, videos, _ = served
     artifact = tmp_path / "m.vctaot"
     artifact.write_bytes(b"")
-    with pytest.raises(SystemExit) as exit_info:
+    with pytest.raises(ValueError, match="not a vct-torch-aot-v1 artifact"):
         deployment.main(["--model", str(artifact), "--videos", videos, "--device", "cpu"])
-    assert exit_info.value.code == 2
     with pytest.raises(SystemExit):
         deployment.main(["--model", ck_port, "--device", "cpu"])
     monkeypatch.setattr(deployment, "_visible_devices", lambda dev: 2)
@@ -210,9 +210,9 @@ def test_cli_refusals(served, tmp_path, monkeypatch):
     assert rc == 1 and "No videos found." in out
 
 
-def test_vctaot_refusal_names_the_roadmap_item(served, tmp_path, capsys):
+def test_vct_artifact_refusal_names_the_converter(served, tmp_path):
     artifact = tmp_path / "m.vctaot"
-    artifact.write_bytes(b"")
-    with pytest.raises(SystemExit):
+    with zipfile.ZipFile(artifact, "w") as zf:
+        zf.writestr("manifest.json", json.dumps({"format": "vct-aot-v1", "platform": "cpu"}))
+    with pytest.raises(ValueError, match="convert_vct_checkpoint.py SRC DST"):
         deployment.main(["--model", str(artifact), "--videos", served[2], "--device", "cpu"])
-    assert "ROADMAP Queue 1 item 7" in capsys.readouterr().err

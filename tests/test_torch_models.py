@@ -245,3 +245,26 @@ def test_seeded_weights_are_reproducible():
     c = build_model(cfg, 4, device="cpu", seed=4).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["adapt.adapt1.weight"], c["adapt.adapt1.weight"])
+
+
+def test_seeded_lecun_weights_are_flax_s_truncated_normal():
+    """Conv and linear weights are drawn as Flax's ``lecun_normal``: a
+    normal truncated at 2 sigma, scaled to variance 1 / fan_in. Held against
+    JAX's own draw by their quantiles and bounds."""
+    fan_in, n = 64, 200_000
+    want = np.sort(np.asarray(jax.nn.initializers.lecun_normal()(
+        jax.random.PRNGKey(0), (fan_in, n // fan_in), jnp.float32)).ravel())
+    cfg = config.ModelConfig(cnn_backbone="resnet18")
+    model = build_model(cfg, 4, device="cpu", seed=5)
+    weight = model.adapt.adapt1.weight.detach().numpy()  # a Linear, (out, fan_in)
+    got = np.sort(weight.ravel()) * np.sqrt(weight.shape[1])
+    want = want * np.sqrt(fan_in)
+    bound = 2 / 0.87962566103423978
+    assert np.abs(got).max() <= bound * (1 + 1e-6)
+    assert np.abs(want).max() <= bound * (1 + 1e-6)
+    qs = [0.01, 0.1, 0.25, 0.5, 0.75, 0.9, 0.99]
+    np.testing.assert_allclose(np.quantile(got, qs), np.quantile(want, qs), atol=0.03)
+    assert abs(got.std() - 1) < 0.01 and abs(want.std() - 1) < 0.01
+    for name, w in model.named_parameters():
+        if name.endswith("weight") and w.dim() == 4:  # every conv
+            assert w.abs().max() * np.sqrt(np.prod(w.shape[1:])) <= bound * (1 + 1e-5), name

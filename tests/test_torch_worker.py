@@ -23,6 +23,7 @@ import re
 import shutil
 import socket
 import threading
+import zipfile
 from http.server import ThreadingHTTPServer
 
 import numpy as np
@@ -271,7 +272,11 @@ def test_worker_refusals(served, tmp_path, monkeypatch):
     _, ck_port, _ = served
     artifact = tmp_path / "m.vctaot"
     artifact.write_bytes(b"")
-    with pytest.raises(ValueError, match=r"ROADMAP Queue 1 item 7 \(b\)"):
+    with pytest.raises(ValueError, match="not a vct-torch-aot-v1 artifact"):
+        worker.Worker(_serve_cfg(str(artifact), tmp_path), device="cpu")
+    with zipfile.ZipFile(artifact, "w") as zf:
+        zf.writestr("manifest.json", json.dumps({"format": "vct-aot-v1", "platform": "cpu"}))
+    with pytest.raises(ValueError, match="convert_vct_checkpoint.py SRC DST"):
         worker.Worker(_serve_cfg(str(artifact), tmp_path), device="cpu")
     cfg = _serve_cfg(ck_port, tmp_path)
     monkeypatch.setenv("VCT_WORKER_MESH", "1")

@@ -22,7 +22,9 @@ trainer and ``python -m vct_torch.caption``), on plain PyTorch as in
 path (``vct_torch.data``: decode, the host samplers, the clip cache, ingest)
 feeds training from a dataset directory (``python -m vct_torch.train
 --data.dataset_path DIR``, with ``--data.stream true`` out of core) and the
-serving CLI (``python -m vct_torch.serve.deployment``).
+serving CLI (``python -m vct_torch.serve.deployment``). One-file
+``torch.export`` artifacts of a classifier or a captioner, with the weights
+and the kernels inside, are written and served by ``vct_torch.serve.aot``.
 
 Importing the package, or its host data path, imports no torch: the
 decode workers import that path alone.

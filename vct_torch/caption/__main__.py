@@ -1,7 +1,7 @@
 """Captioning entry point, the port of ``vct/caption/__main__.py``:
 
     python -m vct_torch.caption --video_dir DIR --annotations FILE [--eval] [...]
-    python -m vct_torch.caption --caption_videos DIR --model CKPT [--beam_width K]
+    python -m vct_torch.caption --caption_videos DIR --model CKPT_OR_VCTAOT [--beam_width K]
     python -m vct_torch.caption --synthetic [...]
 
 Training builds the vocabulary from the annotation file's captions, trains
@@ -9,9 +9,9 @@ teacher-forced with per-epoch checkpoints and resume, the clips decoded a
 batch at a time from the video files (``LazyCaptionLoader``), then with
 ``--eval`` beam-searches them with the 'Average BLEU score' print.
 ``--caption_videos`` captions a directory of videos from a trained
-checkpoint (``vct_torch.caption.infer``). ``--synthetic`` runs the training
-loop on seeded random clips. Everything runs on the card unless ``--device
-cpu`` is given.
+checkpoint or a ``.vctaot`` caption artifact (``vct_torch.caption.infer``).
+``--synthetic`` runs the training loop on seeded random clips. Everything
+runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -62,7 +62,8 @@ def main(argv=None) -> int:
             print(f"Unknown arguments: {argv}")
             return 2
         if not model_path:
-            print("usage: python -m vct_torch.caption --caption_videos DIR --model CKPT "
+            print("usage: python -m vct_torch.caption --caption_videos DIR "
+                  "--model CKPT_OR_VCTAOT "
                   "[--beam_width K] [--video_ext .mp4] [--height 224] [--width 224] "
                   "[--device cpu]")
             return 2

@@ -28,12 +28,26 @@ def _normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
     return torch.randn(shape, generator=gen, dtype=torch.float32) * std
 
 
+# The standard deviation of a unit normal truncated to [-2, 2].
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def _lecun_normal(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
+    """Flax's ``lecun_normal``: a normal truncated at 2 sigma (drawn as
+    ``jax.random.truncated_normal`` draws it, by the inverse error function
+    of a uniform draw), scaled to variance 1 / fan_in."""
+    bound = math.erf(2 / math.sqrt(2))
+    u = torch.rand(shape, generator=gen, dtype=torch.float32) * (2 * bound) - bound
+    z = (math.sqrt(2) * torch.erfinv(u)).clamp(-2, 2)
+    return z * (1.0 / math.sqrt(fan_in) / _TRUNCATED_STD)
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Fill every parameter and buffer from a seeded CPU generator.
 
     The scheme follows the reference's initializers: LeCun-normal conv and
-    linear weights, zero biases, unit norms, BN statistics (0, 1),
+    linear weights (truncated at 2 sigma, as Flax's), zero biases, unit norms, BN statistics (0, 1),
     standard-normal ``A_log`` / ``D`` and embeddings (torch's
     ``nn.Embedding``), and LSTM/GRU weights and biases U(-1/sqrt(H),
     1/sqrt(H)). The same seed gives the same weights on any
@@ -47,7 +61,7 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
             fan_in = w.shape[1] * math.prod(w.shape[2:]) if w.dim() > 2 else w.shape[1]
             if isinstance(mod, nn.Conv1d):  # depthwise: the reference's (k, D) kernel
                 fan_in = w.shape[-1]
-            values[id(w)] = _normal(w.shape, 1.0 / math.sqrt(fan_in), gen)
+            values[id(w)] = _lecun_normal(w.shape, fan_in, gen)
             if mod.bias is not None:
                 values[id(mod.bias)] = torch.zeros(mod.bias.shape)
         elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d)):

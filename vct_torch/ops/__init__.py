@@ -11,6 +11,15 @@
   ``gru_stack`` (K2, a whole unidirectional stack) and ``lstm_scan`` /
   ``gru_scan`` (K5, one layer)
 
-Every wrapper takes a CPU tensor to its plain PyTorch version and a CUDA
-tensor to its kernel, and counts its kernel launches in ``<wrapper>.launches``.
+Importing ``vct_torch.ops.<kernel>`` registers its forward entry point as
+an operator in the ``vct_torch`` namespace (``torch.ops.vct_torch.*``:
+``pair_scores``, ``ssim_pair_scores``, ``selective_scan``, ``rnn_scan``,
+``rnn_stack``; K6 has none, no path calls it) without building anything.
+An operator's CPU implementation is the plain PyTorch version and its CUDA
+implementation the kernel, whose launch it counts in ``<wrapper>.launches``;
+its fake implementation gives the output's shape and dtype, so
+``torch.export`` records the operator in a graph. Every wrapper calls its
+operator where no input requires a gradient; where one does, a CUDA tensor
+goes to an autograd node around the same counted launch and a CPU tensor
+to the plain version. The library is built at the first CUDA launch.
 """

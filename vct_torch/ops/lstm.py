@@ -28,14 +28,17 @@ layer's recurrent and input parts before the layers, the weight gradients
 after them, and between two layers only ``dy = dx @ W_ih^T``. ``vct`` has
 no Pallas kernel there (its custom_vjps differentiate the ``lax.scan``
 references).
-On CUDA each forward wrapper records an autograd node whose backward is
-that kernel when an input requires a gradient; the stack's forward then
-also saves every layer's outputs.
-
-Each wrapper dispatches by device: a CPU tensor goes to the plain PyTorch
-version (``lstm_scan_ref``, ``gru_scan_ref``, ``stack_ref``: loops over
-time, which autograd differentiates; ``scan_bwd_ref``, ``stack_bwd_ref``),
-a CUDA tensor to the kernel, which runs or the wrapper raises.
+Where no input requires a gradient, each forward wrapper calls a registered
+operator, ``vct_torch::rnn_scan`` (K5) or ``vct_torch::rnn_stack`` (K2),
+whose CPU implementation is the plain PyTorch version (``lstm_scan_ref``,
+``gru_scan_ref``, ``stack_ref``: loops over time) and whose CUDA
+implementation is the kernel; an exported program calls the same operator.
+Where one does, a CPU tensor goes to the plain version, which autograd
+differentiates, and a CUDA tensor to an autograd node whose forward is the
+kernel and whose backward is the backward kernel; the stack's forward then
+also saves every layer's outputs. The backward wrappers take a CPU tensor
+to ``scan_bwd_ref`` / ``stack_bwd_ref`` and a CUDA tensor to the kernel,
+which runs or the wrapper raises.
 """
 
 from __future__ import annotations
@@ -364,8 +367,7 @@ def gru_scan_bwd(xp, w_hh, b_hh, y, gy):
 
 
 def _stack_bwd(name, n_gates, xp0, w_hh, b_hh, w_ih, b_ih, hs, y, gy, counter):
-    if _stack_gates(xp0, w_hh, b_hh, w_ih, b_ih) != n_gates:
-        raise ValueError(f"{name} wants {n_gates}H gate columns, got w_hh {tuple(w_hh.shape)}")
+    _check_stack(name, n_gates, xp0, w_hh, b_hh, w_ih, b_ih)
     if xp0.device.type == "cpu":
         return stack_bwd_ref(xp0, w_hh, b_hh, w_ih, b_ih, gy)
     _check_cuda(name, {"xp0": xp0, "w_hh": w_hh, "b_hh": b_hh, "w_ih": w_ih, "b_ih": b_ih,
@@ -397,7 +399,7 @@ class _Scan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, name, n_gates, xp, w_hh, b_hh):
-        y, _, _ = _launch(name, n_gates, xp, w_hh, b_hh)
+        y, _ = _kernel_forward(name, n_gates, xp, w_hh, b_hh)
         ctx.save_for_backward(xp, w_hh, b_hh, y)
         ctx.bwd = lstm_scan_bwd if n_gates == 4 else gru_scan_bwd
         return y
@@ -413,7 +415,7 @@ class _Stack(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, name, n_gates, xp0, w_hh, b_hh, w_ih, b_ih):
-        y, hs, _ = _launch(name, n_gates, xp0, w_hh, b_hh, w_ih, b_ih, save=True)
+        y, hs = _kernel_forward(name, n_gates, xp0, w_hh, b_hh, w_ih, b_ih, save=True)
         ctx.save_for_backward(xp0, w_hh, b_hh, w_ih, b_ih, hs, y)
         ctx.bwd = lstm_stack_bwd if n_gates == 4 else gru_stack_bwd
         return y
@@ -427,66 +429,108 @@ def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def _run_scan(name, n_gates, xp, w_hh, b_hh):
-    """K5 on CUDA tensors: with an autograd node where a gradient is needed."""
-    if _needs_grad(xp, w_hh, b_hh):
-        return _Scan.apply(name, n_gates, xp, w_hh, b_hh), int(xp.numel() > 0)
-    y, _, n = _launch(name, n_gates, xp, w_hh, b_hh)
-    return y, n
+def _kernel_forward(name, n_gates, xp, w_hh, b_hh, w_ih=None, b_ih=None, save=False):
+    """The forward kernel on CUDA tensors, its launch counted on the wrapper
+    ``name``: (y, saves) as ``_launch`` gives them."""
+    y, hs, n = _launch(name, n_gates, xp, w_hh, b_hh, w_ih, b_ih, save=save)
+    _WRAPPERS[name].launches += n
+    return y, hs
 
 
-def _run_stack(name, n_gates, xp0, w_hh, b_hh, w_ih, b_ih):
-    """K2 on CUDA tensors: with an autograd node where a gradient is needed."""
-    if _needs_grad(xp0, w_hh, b_hh, w_ih, b_ih):
-        return _Stack.apply(name, n_gates, xp0, w_hh, b_hh, w_ih, b_ih), int(xp0.numel() > 0)
-    y, _, n = _launch(name, n_gates, xp0, w_hh, b_hh, w_ih, b_ih)
-    return y, n
+def _check_device(name, xp) -> None:
+    if xp.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"{name}: no kernel for device {xp.device}")
+
+
+def _scan(name, n_gates, xp, w_hh, b_hh):
+    _check_layer(name, n_gates, xp, w_hh, b_hh)
+    _check_device(name, xp)
+    if not _needs_grad(xp, w_hh, b_hh):
+        return torch.ops.vct_torch.rnn_scan(xp, w_hh, b_hh, n_gates)
+    if xp.device.type == "cpu":
+        return (lstm_scan_ref if n_gates == 4 else gru_scan_ref)(xp, w_hh, b_hh)
+    return _Scan.apply(name, n_gates, xp, w_hh, b_hh)
+
+
+def _check_stack(name, n_gates, xp0, w_hh, b_hh, w_ih, b_ih) -> None:
+    if _stack_gates(xp0, w_hh, b_hh, w_ih, b_ih) != n_gates:
+        raise ValueError(f"{name} wants {n_gates}H gate columns, got w_hh {tuple(w_hh.shape)}")
+
+
+def _stack(name, n_gates, xp0, w_hh, b_hh, w_ih, b_ih):
+    _check_stack(name, n_gates, xp0, w_hh, b_hh, w_ih, b_ih)
+    _check_device(name, xp0)
+    args = (xp0, w_hh, b_hh, w_ih, b_ih)
+    if not _needs_grad(*args):
+        return torch.ops.vct_torch.rnn_stack(*args, n_gates)
+    if xp0.device.type == "cpu":
+        return stack_ref(*args)
+    return _Stack.apply(name, n_gates, *args)
 
 
 def lstm_scan(xp, w_hh, b_hh) -> torch.Tensor:
     """K5, LSTM: one layer from ``xp = x @ W_ih + b_ih``; (B, T, H) f32."""
-    _check_layer("lstm_scan", 4, xp, w_hh, b_hh)
-    if xp.device.type == "cpu":
-        return lstm_scan_ref(xp, w_hh, b_hh)
-    y, n = _run_scan("lstm_scan", 4, xp, w_hh, b_hh)
-    lstm_scan.launches += n
-    return y
+    return _scan("lstm_scan", 4, xp, w_hh, b_hh)
 
 
 def gru_scan(xp, w_hh, b_hh) -> torch.Tensor:
     """K5, GRU: one layer from ``xp = x @ W_ih + b_ih``; (B, T, H) f32."""
-    _check_layer("gru_scan", 3, xp, w_hh, b_hh)
-    if xp.device.type == "cpu":
-        return gru_scan_ref(xp, w_hh, b_hh)
-    y, n = _run_scan("gru_scan", 3, xp, w_hh, b_hh)
-    gru_scan.launches += n
-    return y
+    return _scan("gru_scan", 3, xp, w_hh, b_hh)
 
 
 def lstm_stack(xp0, w_hh, b_hh, w_ih, b_ih) -> torch.Tensor:
     """K2, LSTM: the whole unidirectional stack (``L >= 2``) in one launch
     from layer 0's ``xp0 = x @ W_ih0 + b_ih0``; (B, T, H) f32."""
-    if _stack_gates(xp0, w_hh, b_hh, w_ih, b_ih) != 4:
-        raise ValueError(f"lstm_stack wants 4H gate columns, got w_hh {tuple(w_hh.shape)}")
-    if xp0.device.type == "cpu":
-        return stack_ref(xp0, w_hh, b_hh, w_ih, b_ih)
-    y, n = _run_stack("lstm_stack", 4, xp0, w_hh, b_hh, w_ih, b_ih)
-    lstm_stack.launches += n
-    return y
+    return _stack("lstm_stack", 4, xp0, w_hh, b_hh, w_ih, b_ih)
 
 
 def gru_stack(xp0, w_hh, b_hh, w_ih, b_ih) -> torch.Tensor:
     """K2, GRU: the whole unidirectional stack (``L >= 2``) in one launch
     from layer 0's ``xp0 = x @ W_ih0 + b_ih0``; (B, T, H) f32."""
-    if _stack_gates(xp0, w_hh, b_hh, w_ih, b_ih) != 3:
-        raise ValueError(f"gru_stack wants 3H gate columns, got w_hh {tuple(w_hh.shape)}")
-    if xp0.device.type == "cpu":
-        return stack_ref(xp0, w_hh, b_hh, w_ih, b_ih)
-    y, n = _run_stack("gru_stack", 3, xp0, w_hh, b_hh, w_ih, b_ih)
-    gru_stack.launches += n
-    return y
+    return _stack("gru_stack", 3, xp0, w_hh, b_hh, w_ih, b_ih)
 
 
+@torch.library.custom_op("vct_torch::rnn_scan", mutates_args=(), device_types="cpu")
+def _scan_op(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+             n_gates: int) -> torch.Tensor:
+    """K5's operator, CPU implementation: the plain version, uncounted."""
+    return (lstm_scan_ref if n_gates == 4 else gru_scan_ref)(xp, w_hh, b_hh)
+
+
+@_scan_op.register_kernel("cuda")
+def _scan_op_cuda(xp, w_hh, b_hh, n_gates):
+    """K5's operator, CUDA implementation: the checked, counted launch."""
+    name = "lstm_scan" if n_gates == 4 else "gru_scan"
+    _check_layer(name, n_gates, xp, w_hh, b_hh)
+    return _kernel_forward(name, n_gates, xp, w_hh, b_hh)[0]
+
+
+@_scan_op.register_fake
+def _scan_op_fake(xp, w_hh, b_hh, n_gates):
+    return xp.new_empty((xp.shape[0], xp.shape[1], w_hh.shape[0]))
+
+
+@torch.library.custom_op("vct_torch::rnn_stack", mutates_args=(), device_types="cpu")
+def _stack_op(xp0: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, w_ih: torch.Tensor,
+              b_ih: torch.Tensor, n_gates: int) -> torch.Tensor:
+    """K2's operator, CPU implementation: the plain version, uncounted."""
+    return stack_ref(xp0, w_hh, b_hh, w_ih, b_ih)
+
+
+@_stack_op.register_kernel("cuda")
+def _stack_op_cuda(xp0, w_hh, b_hh, w_ih, b_ih, n_gates):
+    """K2's operator, CUDA implementation: the checked, counted launch."""
+    name = "lstm_stack" if n_gates == 4 else "gru_stack"
+    _check_stack(name, n_gates, xp0, w_hh, b_hh, w_ih, b_ih)
+    return _kernel_forward(name, n_gates, xp0, w_hh, b_hh, w_ih, b_ih)[0]
+
+
+@_stack_op.register_fake
+def _stack_op_fake(xp0, w_hh, b_hh, w_ih, b_ih, n_gates):
+    return xp0.new_empty((xp0.shape[0], xp0.shape[1], w_hh.shape[1]))
+
+
+_WRAPPERS = {f.__name__: f for f in (lstm_scan, gru_scan, lstm_stack, gru_stack)}
 lstm_scan.launches = 0
 gru_scan.launches = 0
 lstm_stack.launches = 0

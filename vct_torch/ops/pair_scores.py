@@ -11,11 +11,12 @@ For many clips (the bench batch), "chunks": a block a clip's chunk of eight
 transitions and whole frames. ``plan`` chooses the design and its tiles
 from the shape.
 
-``pair_scores`` dispatches by device: a CPU tensor goes to the plain
-PyTorch version ``pair_scores_ref``, a CUDA tensor to the kernel. Both sum
-exactly in 64-bit integers and convert to f32 once, so SAD and flow are
-both bit-equal to the plain version (``vct`` accumulates flow in f32; the
-port agrees with it within rtol 1e-5).
+``pair_scores`` calls the registered operator ``vct_torch::pair_scores``,
+whose CPU implementation is the plain PyTorch version ``pair_scores_ref``
+and whose CUDA implementation is the kernel; an exported program calls the
+same operator. Both sum exactly in 64-bit integers and convert to f32 once,
+so SAD and flow are both bit-equal to the plain version (``vct``
+accumulates flow in f32; the port agrees with it within rtol 1e-5).
 """
 
 from __future__ import annotations
@@ -178,10 +179,21 @@ def pair_scores(clips: torch.Tensor, method: str = "sad") -> torch.Tensor:
     the clips must be uint8 and contiguous; the kernel runs or this raises.
     """
     _validate(clips, method)
-    if clips.device.type == "cpu":
-        return pair_scores_ref(clips, method)
-    if clips.device.type != "cuda":
+    if clips.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"pair_scores: no kernel for device {clips.device}")
+    return torch.ops.vct_torch.pair_scores(clips, method)
+
+
+@torch.library.custom_op("vct_torch::pair_scores", mutates_args=(), device_types="cpu")
+def _op(clips: torch.Tensor, method: str) -> torch.Tensor:
+    """The operator's CPU implementation: the plain version, uncounted."""
+    return pair_scores_ref(clips, method)
+
+
+@_op.register_kernel("cuda")
+def _op_cuda(clips: torch.Tensor, method: str) -> torch.Tensor:
+    """The operator's CUDA implementation: the checked, counted launch."""
+    _validate(clips, method)
     if clips.dtype != torch.uint8:
         raise TypeError(f"the pair_scores kernel takes uint8 frames, got {clips.dtype}")
     if not clips.is_contiguous():
@@ -196,6 +208,12 @@ def pair_scores(clips: torch.Tensor, method: str = "sad") -> torch.Tensor:
     out = _launch(clips, p, method == "flow")
     pair_scores.launches += 1
     return out
+
+
+@_op.register_fake
+def _op_fake(clips: torch.Tensor, method: str) -> torch.Tensor:
+    return clips.new_empty((clips.shape[0], torch.sym_max(clips.shape[1] - 1, 0)),
+                           dtype=torch.float32)
 
 
 def _launch(clips: torch.Tensor, p: dict, square: bool) -> torch.Tensor:

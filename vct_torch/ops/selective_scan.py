@@ -14,12 +14,15 @@ of its own, ``bwd_plan``; each chunk's h recomputed into shared memory and
 walked backwards; the sums over channels and batch added by the last block
 to arrive, in a fixed order, so two runs are bit-equal); ``vct`` has no
 Pallas kernel there (its custom_vjp differentiates the associative scan).
-On CUDA, ``selective_scan`` records an autograd node whose backward launches
-it when an input requires a gradient.
-
-Both dispatch by device: a CPU tensor goes to the plain PyTorch version
-(``selective_scan_ref``, which autograd differentiates;
-``selective_scan_bwd_ref``), a CUDA tensor to the kernel.
+Where no input requires a gradient, ``selective_scan`` calls the registered
+operator ``vct_torch::selective_scan``, whose CPU implementation is the
+plain PyTorch version ``selective_scan_ref`` and whose CUDA implementation
+is the forward kernel; an exported program calls the same operator. Where
+one does, a CPU tensor goes to ``selective_scan_ref``, which autograd
+differentiates, and a CUDA tensor to an autograd node whose forward is the
+kernel and whose backward launches ``selective_scan_bwd``.
+``selective_scan_bwd`` takes a CPU tensor to ``selective_scan_bwd_ref`` and
+a CUDA tensor to its kernel.
 """
 
 from __future__ import annotations
@@ -200,13 +203,35 @@ def selective_scan(u, delta, A, B, C, reverse: bool = False) -> torch.Tensor:
     ``selective_scan_bwd``.
     """
     _validate(u, delta, A, B, C)
-    if u.device.type == "cpu":
-        return selective_scan_ref(u, delta, A, B, C, reverse=reverse)
     args = (u, delta, A, B, C)
+    if u.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"selective_scan: no kernel for device {u.device}")
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in args)):
+        return torch.ops.vct_torch.selective_scan(*args, reverse)
+    if u.device.type == "cpu":
+        return selective_scan_ref(*args, reverse=reverse)
     _check_cuda("selective_scan", dict(zip(("u", "delta", "A", "B", "C"), args)))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return _SelectiveScan.apply(*args, reverse)
-    return _forward(*args, reverse)
+    return _SelectiveScan.apply(*args, reverse)
+
+
+@torch.library.custom_op("vct_torch::selective_scan", mutates_args=(), device_types="cpu")
+def _op(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """The operator's CPU implementation: the plain version, uncounted."""
+    return selective_scan_ref(u, delta, A, B, C, reverse=reverse)
+
+
+@_op.register_kernel("cuda")
+def _op_cuda(u, delta, A, B, C, reverse):
+    """The operator's CUDA implementation: the checked, counted launch."""
+    _validate(u, delta, A, B, C)
+    _check_cuda("selective_scan", dict(zip(("u", "delta", "A", "B", "C"), (u, delta, A, B, C))))
+    return _forward(u, delta, A, B, C, reverse)
+
+
+@_op.register_fake
+def _op_fake(u, delta, A, B, C, reverse):
+    return u.new_empty(u.shape)
 
 
 def selective_scan_bwd_ref(u, delta, A, B, C, gy, reverse: bool = False):

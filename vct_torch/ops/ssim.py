@@ -8,8 +8,10 @@ the SSIM expression) and how its design meets that: a block takes a chunk of
 K transitions and a band of R output rows, so each frame's window sums are
 formed once per chunk. ``plan`` chooses (K, R, threads) from the shape.
 
-``ssim_pair_scores`` dispatches by device: a CPU tensor goes to the plain
-PyTorch version ``ssim_pair_scores_ref``, a CUDA tensor to the kernel. The
+``ssim_pair_scores`` calls the registered operator
+``vct_torch::ssim_pair_scores``, whose CPU implementation is the plain
+PyTorch version ``ssim_pair_scores_ref`` and whose CUDA implementation is
+the kernel; an exported program calls the same operator. The
 plain version follows the TPU kernel's arithmetic, not the float scorer's
 (``vct_torch.data.samplers._device_ssim``): a frame is an (H, W*C) array,
 the five window sums are exact integer sums (every product and 3x3 sum of
@@ -187,10 +189,21 @@ def ssim_pair_scores(clips: torch.Tensor, win: int = 3,
     ``KERNEL_WINDOWS``; the kernel runs or this raises.
     """
     _validate(clips, win)
-    if clips.device.type == "cpu":
-        return ssim_pair_scores_ref(clips, win, data_range)
-    if clips.device.type != "cuda":
+    if clips.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"ssim_pair_scores: no kernel for device {clips.device}")
+    return torch.ops.vct_torch.ssim_pair_scores(clips, win, data_range)
+
+
+@torch.library.custom_op("vct_torch::ssim_pair_scores", mutates_args=(), device_types="cpu")
+def _op(clips: torch.Tensor, win: int, data_range: float) -> torch.Tensor:
+    """The operator's CPU implementation: the plain version, uncounted."""
+    return ssim_pair_scores_ref(clips, win, data_range)
+
+
+@_op.register_kernel("cuda")
+def _op_cuda(clips: torch.Tensor, win: int, data_range: float) -> torch.Tensor:
+    """The operator's CUDA implementation: the checked, counted launch."""
+    _validate(clips, win)
     if clips.dtype != torch.uint8:
         raise TypeError(f"the ssim_pair_scores kernel takes uint8 frames, got {clips.dtype}")
     if not clips.is_contiguous():
@@ -206,6 +219,12 @@ def ssim_pair_scores(clips: torch.Tensor, win: int = 3,
     out = _launch(clips, plan(B, L, H, W, C), _constants(win, data_range))
     ssim_pair_scores.launches += 1
     return out
+
+
+@_op.register_fake
+def _op_fake(clips: torch.Tensor, win: int, data_range: float) -> torch.Tensor:
+    return clips.new_empty((clips.shape[0], torch.sym_max(clips.shape[1] - 1, 0)),
+                           dtype=torch.float32)
 
 
 def _launch(clips: torch.Tensor, p: dict, constants) -> torch.Tensor:

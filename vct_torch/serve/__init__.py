@@ -1,6 +1,6 @@
-"""Serving: batch inference and its CLI (``deployment``), the result store,
-the work queue, the REST backend, the queue worker, the TikTok client and
-the crawler. Importing the package imports no torch: the serving CLI's
+"""Serving: batch inference and its CLI (``deployment``), one-file AOT
+artifacts (``aot``), the result store, the work queue, the REST backend, the
+queue worker, the TikTok client and the crawler. Importing the package imports no torch: the serving CLI's
 spawned decode workers import ``deployment`` as their main module."""
 
 from vct_torch.serve.deployment import (  # noqa: F401

@@ -22,13 +22,14 @@ Port of ``vct/serve/deployment.py``:
 * ``_load_with_device_sampling`` — decode every frame on the host, then
   ``sample_decoded_clips`` on the device, one video at a time, each
   selected clip back to the host.
-* ``main`` — the CLI: ``--model DIR`` (a vct_torch checkpoint) and
-  ``--videos DIR`` (host sampling through ``load_dataset_inference``, or
+* ``main`` — the CLI: ``--model`` a vct_torch checkpoint directory or a
+  ``.vctaot`` artifact file (``vct_torch.serve.aot.AotServable``: weights
+  and forward in one file, no model zoo in the path) and ``--videos DIR``
+  (host sampling through ``load_dataset_inference``, or
   ``--device_sampling``) or ``--frames DIR``; ``--post``; ``--device``.
 
-Not ported: the ``.vctaot`` artifact (ROADMAP Queue 1 item 7 (b)), which
-``main`` refuses, and mesh serving over more than one card (item 8), which
-``--mesh`` refuses (on one card it changes nothing, as in ``vct``).
+Not ported: mesh serving over more than one card (ROADMAP Queue 1 item 8),
+which ``--mesh`` refuses (on one card it changes nothing, as in ``vct``).
 """
 
 from __future__ import annotations
@@ -303,7 +304,8 @@ def _visible_devices(dev: torch.device) -> int:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Batch video classification")
-    parser.add_argument("--model", required=True, help="vct_torch checkpoint directory")
+    parser.add_argument("--model", required=True,
+                        help="vct_torch checkpoint directory or .vctaot artifact")
     parser.add_argument("--videos", default=None, help="directory of videos")
     parser.add_argument("--frames", default=None,
                         help="directory of extracted frame images for ONE clip")
@@ -322,24 +324,48 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if not args.videos and not args.frames:
         parser.error("one of --videos or --frames is required")
-    if os.path.isfile(args.model):
-        parser.error(f"{args.model} is a file: a .vctaot artifact is not ported to "
-                     "vct_torch yet (ROADMAP Queue 1 item 7 (b)); pass a "
-                     "vct_torch checkpoint directory")
     dev = resolve_device(args.device)
-    if args.mesh and _visible_devices(dev) > 1:
-        raise NotImplementedError("--mesh over more than one card is not ported to "
-                                  "vct_torch yet (ROADMAP Queue 1 item 8)")
+    servable = None
+    if os.path.isfile(args.model):
+        # A .vctaot artifact: weights and forward in one file, no model zoo,
+        # config or checkpoint restore in the serving path.
+        from vct_torch.serve.aot import AotServable
 
-    model, class_names, cfg = load_model(args.model, device=dev)
-    sampling = args.sampling or cfg.data.sampling_method
-    seq_len = args.sequence_length or cfg.data.sequence_length
-    img_h, img_w = cfg.data.img_height, cfg.data.img_width
+        servable = AotServable.load(args.model, device=dev)
+        if servable.device_sampling:
+            parser.error(
+                "this artifact bakes on-device sampling in (raw-input "
+                "contract, AotServable.classify_raw); the deployment CLI "
+                "feeds pre-sampled clips — export without --device_sampling"
+            )
+        model = cfg = None
+        class_names = servable.class_names
+        # The manifest records the training-time sampling, so artifact
+        # serving preprocesses as the checkpoint path would.
+        sampling = args.sampling or servable.sampling_method or "uniform"
+        art_T = servable.input_shape[0]
+        if args.sequence_length and args.sequence_length != art_T:
+            print(f"--sequence_length {args.sequence_length} overridden to {art_T}: the "
+                  f"artifact's programs are exported for T={art_T}")
+        seq_len = art_T
+        img_h, img_w = servable.input_shape[1], servable.input_shape[2]
+        if args.mesh:
+            print("--mesh is ignored for .vctaot artifacts; serving an artifact over "
+                  "more than one card is not ported (ROADMAP Queue 1 item 8)")
+    else:
+        if args.mesh and _visible_devices(dev) > 1:
+            raise NotImplementedError("--mesh over more than one card is not ported to "
+                                      "vct_torch yet (ROADMAP Queue 1 item 8)")
+        model, class_names, cfg = load_model(args.model, device=dev)
+        sampling = args.sampling or cfg.data.sampling_method
+        seq_len = args.sequence_length or cfg.data.sequence_length
+        img_h, img_w = cfg.data.img_height, cfg.data.img_width
     if args.frames:
         from vct_torch.data.frames import preprocess_frames_dir
 
         clip = preprocess_frames_dir(args.frames, seq_len, img_h, img_w)
-        probs = classify_videos(model, clip, batch_size=1, device=dev)
+        probs = (servable.classify(clip) if servable is not None
+                 else classify_videos(model, clip, batch_size=1, device=dev))
         print(f"Predicted class: {class_names[int(np.argmax(probs[0]))]}")
         return 0
     if args.device_sampling:
@@ -355,10 +381,17 @@ def main(argv=None) -> int:
     if len(names) == 0:
         print("No videos found.")
         return 1
-    results = classify_and_display(model, clips, names, class_names,
-                                   batch_size=args.batch_size, device=dev)
+    results = classify_and_display(
+        model, clips, names, class_names, batch_size=args.batch_size, device=dev,
+        probs=servable.classify(clips) if servable is not None else None)
     if args.post:
-        post_results(results, args.backend_url or cfg.serve.backend_url)
+        if cfg is not None:
+            backend_url = args.backend_url or cfg.serve.backend_url
+        else:
+            from vct_torch.core.config import ServeConfig
+
+            backend_url = args.backend_url or ServeConfig().backend_url
+        post_results(results, backend_url)
     return 0
 
 

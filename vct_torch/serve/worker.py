@@ -13,19 +13,21 @@ to the backend. As in ``vct``:
     classification.
 
 Configuration through environment variables, as ``vct``'s: MODEL_PATH (a
-``vct_torch`` checkpoint directory), SAMPLING_METHOD, SEQUENCE_LENGTH,
-VIDEO_DIR, QUEUE_PORT, APP_STAGE and BACKEND_URL; ``device`` (default: the
-card) says where the model runs. ``python -m vct_torch.serve.worker`` runs it.
+``vct_torch`` checkpoint directory, or a ``.vctaot`` artifact file, served
+through ``vct_torch.serve.aot.AotServable`` and warmed before the queue is
+bound), SAMPLING_METHOD, SEQUENCE_LENGTH, VIDEO_DIR, QUEUE_PORT, APP_STAGE
+and BACKEND_URL; ``device`` (default: the card) says where the model runs.
+``python -m vct_torch.serve.worker`` runs it.
 
-Not ported: a ``.vctaot`` artifact as MODEL_PATH (ROADMAP Queue 1 item 7
-(b)), which raises ``ValueError``, and ``VCT_WORKER_MESH=1`` over more than
-one card (item 8), which raises ``NotImplementedError`` (on one card it
-changes nothing, as in ``vct``). ``vct``'s persistent compile cache is
-XLA's and has no counterpart here.
+Not ported: ``VCT_WORKER_MESH=1`` over more than one card (ROADMAP Queue 1
+item 8), which raises ``NotImplementedError`` (on one card it changes
+nothing, as in ``vct``). ``vct``'s persistent compile cache is XLA's and has
+no counterpart here.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import urllib.parse
@@ -48,19 +50,44 @@ class Worker:
         self.cfg = cfg
         self.downloader = downloader  # callable(url, save_dir) -> None
         print(f"Loading model from {cfg.model_path}")
-        if os.path.isfile(cfg.model_path):
-            raise ValueError(
-                f"MODEL_PATH {cfg.model_path} is a file: a .vctaot artifact is not "
-                "ported to vct_torch yet (ROADMAP Queue 1 item 7 (b)); pass a "
-                "vct_torch checkpoint directory"
-            )
         self.device = resolve_device(device)
-        if (os.environ.get("VCT_WORKER_MESH") == "1"
-                and deployment._visible_devices(self.device) > 1):
-            raise NotImplementedError("VCT_WORKER_MESH over more than one card is not "
-                                      "ported to vct_torch yet (ROADMAP Queue 1 item 8)")
-        self.model, self.class_names, self.model_cfg = load_model(
-            cfg.model_path, device=self.device)
+        self.servable = None
+        if os.path.isfile(cfg.model_path):
+            # MODEL_PATH is a .vctaot artifact: weights and forward in one
+            # file, no model zoo, config or checkpoint restore in the path.
+            from vct_torch.serve.aot import AotServable
+
+            self.servable = AotServable.load(cfg.model_path, device=self.device)
+            if self.servable.device_sampling:
+                raise ValueError(
+                    "this artifact bakes on-device sampling in (raw-input "
+                    "contract, AotServable.classify_raw); the worker feeds "
+                    "pre-sampled clips — export without --device_sampling "
+                    "for worker serving"
+                )
+            self.model = self.model_cfg = None
+            self.class_names = self.servable.class_names
+            art_T = self.servable.input_shape[0]
+            if cfg.sequence_length != art_T:
+                print(f"SEQUENCE_LENGTH={cfg.sequence_length} overridden to {art_T}: the "
+                      f"artifact's programs are exported for T={art_T}")
+                self.cfg = cfg = dataclasses.replace(cfg, sequence_length=art_T)
+            # The programs' first run pays one-time costs (the kernels'
+            # build and plans, cuDNN's choices) that belong at start-up, not
+            # in the first user request.
+            self.servable.warmup()
+            if self.servable.sampling_method and "SAMPLING_METHOD" not in os.environ:
+                # No explicit override: preprocess as the model was trained
+                # (the manifest records it).
+                self.cfg = cfg = dataclasses.replace(
+                    cfg, sampling_method=self.servable.sampling_method)
+        else:
+            if (os.environ.get("VCT_WORKER_MESH") == "1"
+                    and deployment._visible_devices(self.device) > 1):
+                raise NotImplementedError("VCT_WORKER_MESH over more than one card is not "
+                                          "ported to vct_torch yet (ROADMAP Queue 1 item 8)")
+            self.model, self.class_names, self.model_cfg = load_model(
+                cfg.model_path, device=self.device)
         self.pull = QueuePull(port=cfg.queue_port)
 
     def callback(self, url: str) -> None:
@@ -74,19 +101,24 @@ class Worker:
             save_tiktok_multi_urls([url], save_video=True,
                                    save_dir=self.cfg.video_dir)
 
+        if self.servable is not None:
+            img_h, img_w = self.servable.input_shape[1:3]
+        else:
+            img_h, img_w = self.model_cfg.data.img_height, self.model_cfg.data.img_width
         clips, names = load_dataset_inference(
             self.cfg.video_dir,
             sampling_method=self.cfg.sampling_method,
             sequence_length=self.cfg.sequence_length,
-            img_height=self.model_cfg.data.img_height,
-            img_width=self.model_cfg.data.img_width,
+            img_height=img_h,
+            img_width=img_w,
             skip=self._already_classified(),
         )
         if len(names) == 0:
             print("No videos to classify.")
             return
-        results = classify_and_display(self.model, clips, names, self.class_names,
-                                       device=self.device)
+        results = classify_and_display(
+            self.model, clips, names, self.class_names, device=self.device,
+            probs=self.servable.classify(clips) if self.servable is not None else None)
         posted = post_results(results, self.cfg.backend_url)
         # Delete videos whose result the backend confirmed. Transient
         # failures (valid URL, backend down/5xx) stay on disk and retry via
