@@ -264,7 +264,33 @@ line):
     that loads and serves the dense artifact on the card without importing
     the model zoo, the config, the host preprocessing or the trainer
     (``AOT_NO_ZOO``); the phase's seconds;
-19. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
+19. sweeps — (a) ``python -m vct_torch.sweep``'s ``main`` in process with
+    ``--strategy grid`` over ``model.rnn_type`` in {mamba, lstm, gru} at the
+    deployed configuration's full width (resnet50 in bf16, rnn_input 8, 3
+    layers, T=60, 80x80, scan_impl "pallas", the feature cache; 40 synthetic
+    clips, B=32, 2 epochs, one run a configuration, every trial recorded):
+    three trials launching K3, K2-LSTM and K2-GRU, each trial's forward and
+    backward launches read around it and held to its steps
+    (``_expected_train_launches``), its seconds, F1 and accuracy (printed, not
+    gated: this head's training is chaotic) and ``memory_allocated`` after
+    it printed; then the same argv again, which must skip every
+    configuration, launch nothing and leave the store byte-equal. (b) Each
+    trial's best-model directory loads through ``load_model`` and classifies
+    4 seeded clips within 1e-5 of the trial's own trained model (read at the
+    end of the trial; those launches not counted as the trial's). (c) One
+    trial in the subprocess mode: a ``python -m vct_torch.train`` child on
+    the card, the scraped metrics equal to what the child printed, its output
+    in ``sweep.log_file``. (d) ``vct_torch.tools.sweep_rehearsal``'s TPE sweep
+    in process with 8 trials of 3 epochs, its trial journal and the
+    compaction into the canonical JSON checked; then the genetic algorithm on
+    the same data (population 4), stopped after one generation and resumed
+    from its checkpoint to two; one trial streamed from the rehearsal's clip
+    cache (``data.stream``). Every trial runs under ``_sweep_guard``: a
+    trial that raises fails the phase (the runner alone would log it and go
+    on), one whose head kernels never launched fails it, and so does device
+    memory that grows past the first trial's level plus 64 MB; the phase's
+    seconds;
+20. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
     launches, error, time, plain time, bound (K3 forward and backward also at
     the VideoMamba step, B=32 T=16 D=2048 N=16, ``"config": "videomamba"``,
     launches from phase 13) and, for K2/K5, the design,
@@ -3954,6 +3980,331 @@ def _aot_path(torch, gpu, root: Path) -> None:
     print(f"aot phase: {secs:.1f} s")
 
 
+# Phase 19, sweeps: the grid over the deployed configuration's three heads at
+# full width (40 synthetic clips: 32 train, 8 test, B=32, 2 epochs).
+SWEEP_SPACE = {"model.rnn_type": ["mamba", "lstm", "gru"]}
+SWEEP_MEMORY_SLACK = 64 << 20  # bytes a trial may leave above the first trial's level
+SWEEP_PROBE_CLIPS = 4  # clips the best models classify, against the trials' own models
+SWEEP_TOL = 1e-5
+# The subprocess trial: small, a python -m vct_torch.train child on the card.
+SWEEP_CHILD = {"model.cnn_backbone": "resnet18", "data.sequence_length": "8",
+               "data.img_height": "32", "data.img_width": "32", "data.synthetic_samples": "8",
+               "train.batch_size": "4", "train.epochs": "1"}
+# TPE and the genetic algorithm on the rehearsal's configuration, small.
+SWEEP_TPE_TRIALS, SWEEP_SMALL_EPOCHS = 8, 3
+SWEEP_GA_POPULATION, SWEEP_GA_GENERATIONS = 4, 2
+
+
+def _sweep_guard(torch, trials: list):
+    """A ``SweepRunner`` whose every trial is timed, has the head kernels'
+    launch counters read around it and the device memory read after it. A
+    trial that raises is recorded with its traceback (the runner would log it
+    and go on), so the phase fails on it and never counts it as a result."""
+    import traceback
+
+    from vct_torch.sweep.runner import SweepRunner
+
+    counters = _train_counters()
+
+    class Guarded(SweepRunner):
+        def _train_once(self, cfg):
+            t = cfg.train
+            record = {"trial": f"{cfg.model.rnn_type} lr {t.learning_rate:.4g} B {t.batch_size} "
+                               f"seed {t.seed}"}
+            trials.append(record)
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            try:
+                metrics = super()._train_once(cfg)
+            except Exception:
+                record["error"] = traceback.format_exc()
+                print(f"sweep trial {record['trial']} raised:\n{record['error']}", flush=True)
+                raise
+            torch.cuda.synchronize()
+            record.update(s=time.perf_counter() - t0,
+                          launches={n: fn.launches for n, fn in counters.items()},
+                          memory=torch.cuda.memory_allocated(), f1=metrics.f1,
+                          accuracy=metrics.accuracy)
+            return metrics
+
+    return Guarded
+
+
+def _sweep_hold_trials(label: str, trials: list) -> None:
+    """Fail on a trial that raised, on one whose head kernels never
+    launched, and on memory that grew past the first trial's level."""
+    failed = [r["trial"] for r in trials if "error" in r]
+    if failed:
+        raise AssertionError(f"{label}: trials raised: {failed}")
+    for r in trials:
+        print(f"  {label} trial {r['trial']}: {r['s']:.2f} s, F1 {r['f1']:.4f}, accuracy "
+              f"{r['accuracy']:.4f}, memory_allocated {r['memory']} B, launches "
+              f"{_nonzero(r['launches'])}")
+        if not any(r["launches"].values()):
+            raise AssertionError(f"{label}: trial {r['trial']} launched no kernel")
+    top = trials[0]["memory"] + SWEEP_MEMORY_SLACK
+    grown = [(r["trial"], r["memory"]) for r in trials[1:] if r["memory"] > top]
+    if grown:
+        raise AssertionError(f"{label}: device memory grew past the first trial's "
+                             f"{trials[0]['memory']} B + {SWEEP_MEMORY_SLACK}: {grown}")
+
+
+def _sweep_main(torch, run) -> tuple:
+    """(result, stdout) of ``run()`` in process; the output echoed."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            result = run()
+        torch.cuda.synchronize()
+    finally:
+        print("\n".join(f"  | {line}" for line in out.getvalue().splitlines()), flush=True)
+    return result, out.getvalue()
+
+
+def _sweep_grid(torch, root: Path) -> dict:
+    """(a) ``python -m vct_torch.sweep --strategy grid`` in process at the
+    deployed configuration, one trial a head, each trial's launches held to
+    its steps; the same argv again skips every configuration, launches
+    nothing and leaves the store's bytes as they were. (b) Each trial's
+    best-model directory loads through ``load_model`` and classifies the
+    probe clips within ``SWEEP_TOL`` of the trial's own trained model."""
+    from vct_torch.serve.deployment import classify_videos, load_model
+    from vct_torch.sweep import __main__ as sweep_main
+    from vct_torch.sweep.store import SweepStore
+    from vct_torch.train.engine import Trainer
+
+    space = root / "space.json"
+    space.write_text(json.dumps(SWEEP_SPACE))
+    argv = ["--strategy", "grid", "--space", str(space), "--data.synthetic", "true",
+            "--data.synthetic_samples", str(TRAIN_SAMPLES), "--data.sequence_length", str(T),
+            "--data.img_height", str(H), "--data.img_width", str(W),
+            "--model.compute_dtype", "bfloat16", "--train.feature_cache", "true",
+            "--train.batch_size", str(TRAIN_BATCH), "--train.epochs", str(TRAIN_EPOCHS),
+            "--train.model_path", str(root / "trial_model"),
+            "--sweep.checkpoint_file", str(root / "sweep.json"),
+            "--sweep.best_model_dir", str(root / "best"), "--sweep.test_runs", "1",
+            "--sweep.f1_threshold", "-1"]
+    for key, value in DEPLOYED.items():
+        argv += [f"--model.{key}", str(value)]
+    counters = _train_counters()
+    clips = np.random.RandomState(190).rand(SWEEP_PROBE_CLIPS, T, H, W, 3).astype(np.float32)
+    probes, trials = {}, []
+    evaluate = Trainer.evaluate
+
+    def probed(self, state, *args, **kwargs):
+        # The trial's own trained model on the probe clips; these launches
+        # are not the trial's.
+        metrics = evaluate(self, state, *args, **kwargs)
+        before = {n: fn.launches for n, fn in counters.items()}
+        probes[self.cfg.model.rnn_type] = classify_videos(state.model, clips,
+                                                          batch_size=len(clips))
+        for n, fn in counters.items():
+            fn.launches = before[n]
+        return metrics
+
+    t0 = time.perf_counter()
+    with mock.patch.object(sweep_main, "SweepRunner", _sweep_guard(torch, trials)), \
+            mock.patch.object(Trainer, "evaluate", probed):
+        rc, text = _sweep_main(torch, lambda: sweep_main.main(argv))
+    grid_s = time.perf_counter() - t0
+    _sweep_hold_trials("grid", trials)
+    n_test = int(round(TRAIN_SAMPLES * 0.2))
+    steps = TRAIN_EPOCHS * -(-(TRAIN_SAMPLES - n_test) // TRAIN_BATCH)
+    for r, rnn in zip(trials, SWEEP_SPACE["model.rnn_type"]):
+        want = _expected_train_launches({**DEPLOYED, "rnn_type": rnn},
+                                        steps + -(-n_test // TRAIN_BATCH), steps)
+        if r["launches"] != want:
+            raise AssertionError(f"grid trial {rnn}: launches {r['launches']} != {want}")
+    extract_s = [float(s) for s in re.findall(r"feature_cache: extracted .* in ([\d.]+)s", text)]
+    entries = SweepStore(str(root / "sweep.json")).load()
+    recorded = [e["config"]["model.rnn_type"] for e in entries]
+    if rc != 0 or recorded != SWEEP_SPACE["model.rnn_type"] or len(trials) != 3 \
+            or len(extract_s) != 3 or "Best result: {" not in text:
+        raise AssertionError(f"grid: rc {rc}, {len(trials)} trials, store {entries}")
+    print(f"sweep grid: {grid_s:.2f} s for 3 trials; feature extraction {extract_s} s; "
+          f"launches held to the steps ({steps} train steps, "
+          f"{steps + -(-n_test // TRAIN_BATCH)} forwards a trial)")
+
+    # the same argv again: every configuration skipped
+    before = (root / "sweep.json").read_bytes()
+    for fn in counters.values():
+        fn.launches = 0
+    with mock.patch.object(sweep_main, "SweepRunner", _sweep_guard(torch, trials)):
+        rc, again = _sweep_main(torch, lambda: sweep_main.main(argv))
+    launched = _nonzero({n: fn.launches for n, fn in counters.items()})
+    skipped = again.count("Skipping completed config")
+    if rc != 0 or skipped != 3 or len(trials) != 3 or launched \
+            or (root / "sweep.json").read_bytes() != before or (root / "sweep.jsonl").exists():
+        raise AssertionError(f"grid rerun: rc {rc}, {skipped} skipped, {len(trials)} trials, "
+                             f"launches {launched}, store changed")
+    print("sweep grid rerun: 3 configurations skipped, no launch, store byte-equal")
+
+    # (b) each best model serves as its trial's model did
+    served = {}
+    for e in entries:
+        rnn = e["config"]["model.rnn_type"]
+        model, _, _ = load_model(str(root / "best" / e["best_model_filename"]))
+        got = classify_videos(model, clips, batch_size=len(clips))
+        served[rnn] = float(np.max(np.abs(got - probes[rnn])))
+        del model
+        if not served[rnn] <= SWEEP_TOL:
+            raise AssertionError(f"best model {rnn}: {served[rnn]} from the trial's model")
+    print(f"sweep best models: {SWEEP_PROBE_CLIPS} clips each within {served} of the trials' "
+          f"own models (tolerance {SWEEP_TOL})")
+    return {"grid_s": grid_s, "extract_s": extract_s, "served_max_abs_err": served,
+            "trials": [{k: v for k, v in r.items() if k != "launches"} for r in trials],
+            "launches": {r["trial"]: _nonzero(r["launches"]) for r in trials}}
+
+
+def _sweep_child(torch, root: Path, here: Path) -> dict:
+    """(c) one trial in the subprocess mode: a ``python -m vct_torch.train``
+    child on the card, its metric block scraped; the log holds its output."""
+    import os
+
+    from vct_torch.core.config import Config
+    from vct_torch.core.metrics_contract import extract_metrics
+    from vct_torch.sweep.runner import SweepRunner
+    from vct_torch.sweep.store import SweepStore
+
+    cfg = Config().replace(**{
+        **{f"model.{k}": str(v) for k, v in DEPLOYED.items()}, **SWEEP_CHILD,
+        "data.synthetic": "true", "train.model_path": str(root / "child_model"),
+        "sweep.log_file": str(root / "child.log"),
+        "sweep.checkpoint_file": str(root / "child.json"),
+        "sweep.best_model_dir": str(root / "child_best"), "sweep.f1_threshold": "-1"})
+    scraped = []
+
+    class Child(SweepRunner):
+        def _train_subprocess(self, cfg):
+            scraped.append(super()._train_subprocess(cfg))
+            return scraped[-1]
+
+    runner = Child(cfg, store=SweepStore(cfg.sweep.checkpoint_file), use_subprocess=True)
+    t0 = time.perf_counter()
+    path = os.pathsep.join(filter(None, [str(here), os.environ.get("PYTHONPATH")]))
+    with mock.patch.dict(os.environ, {"PYTHONPATH": path}):
+        f1, name = runner.run_training({"model.rnn_type": "mamba"}, test_runs=1)
+    secs = time.perf_counter() - t0
+    log = (root / "child.log").read_text()
+    printed = extract_metrics(log)
+    if not scraped or dataclasses.asdict(scraped[0]) != dataclasses.asdict(printed) \
+            or "Epoch 1/1" not in log or "Error Output" in log or name is None \
+            or runner.store.load()[0]["metrics"] != printed.to_dict():
+        raise AssertionError(f"subprocess trial: scraped {scraped}, log:\n{log}")
+    print(f"sweep subprocess trial: {secs:.2f} s; the scraped metrics are the child's "
+          f"(F1 {printed.f1}, accuracy {printed.accuracy}); {len(log)} bytes of log")
+    return {"subprocess_s": secs, "subprocess_f1": printed.f1}
+
+
+def _sweep_small(torch, root: Path) -> dict:
+    """(d) the rehearsal's TPE sweep in process (``--trials 8 --epochs 3``)
+    and the genetic algorithm (population 4) on the same data, stopped after
+    one generation and resumed from its checkpoint to two; the journals,
+    the compaction and the resume checked; then one trial streamed from the
+    same clip cache. Every trial guarded."""
+    from vct_torch.data.ingest import load_or_build_dataset
+    from vct_torch.sweep import runner as sweep_runner
+    from vct_torch.sweep.store import SweepStore
+    from vct_torch.sweep.strategies import genetic_algorithm
+    from vct_torch.tools import sweep_rehearsal
+
+    out = root / "rehearsal"
+    tpe, ga = [], []
+    t0 = time.perf_counter()
+    with mock.patch.object(sweep_runner, "SweepRunner", _sweep_guard(torch, tpe)):
+        summary, text = _sweep_main(torch, lambda: sweep_rehearsal.main(
+            ["--trials", str(SWEEP_TPE_TRIALS), "--epochs", str(SWEEP_SMALL_EPOCHS),
+             "--out", str(out)]))
+    tpe_s = time.perf_counter() - t0
+    _sweep_hold_trials("tpe", tpe)
+    if json.loads(text.strip().splitlines()[-1]) != summary:
+        raise AssertionError(f"tpe: the last line is not the summary {summary}")
+    journal = (out / "tpe_trials.json").read_text().splitlines()
+    canonical = json.loads((out / "checkpoint.json").read_text())
+    if len(tpe) != SWEEP_TPE_TRIALS or len(journal) != SWEEP_TPE_TRIALS \
+            or (out / "checkpoint.jsonl").exists() or len(canonical) != summary["store_entries"] \
+            or summary["journal_lines_before_compaction"] != summary["store_entries"]:
+        raise AssertionError(f"tpe: {len(tpe)} trials, {len(journal)} journal lines, "
+                             f"summary {summary}")
+    print(f"sweep tpe: {tpe_s:.2f} s, summary {summary}")
+
+    # Every GA trial is recorded (threshold -1): the journal, then the compaction.
+    cfg = sweep_rehearsal.rehearsal_config(str(out), SWEEP_SMALL_EPOCHS).replace(**{
+        "sweep.checkpoint_file": str(out / "ga.json"), "sweep.f1_threshold": "-1"})
+    data = load_or_build_dataset(cfg)
+    ckpt = str(out / "ga_checkpoint.json")
+    Guarded = _sweep_guard(torch, ga)
+
+    def genetic(generations: int) -> str:
+        """The GA to ``generations`` in a new runner; its stdout."""
+        runner = Guarded(cfg, store=SweepStore(cfg.sweep.checkpoint_file), data=data)
+        return _sweep_main(torch, lambda: genetic_algorithm(
+            runner, sweep_rehearsal.SPACE, population_size=SWEEP_GA_POPULATION,
+            generations=generations, seed=0, checkpoint_path=ckpt))[1]
+
+    t0 = time.perf_counter()
+    genetic(SWEEP_GA_GENERATIONS - 1)
+    stopped = json.loads(Path(ckpt).read_text())
+    n_first = len(ga)
+    resumed = genetic(SWEEP_GA_GENERATIONS)
+    ga_s = time.perf_counter() - t0
+    _sweep_hold_trials("genetic", ga)
+    saved = json.loads(Path(ckpt).read_text())
+    store = SweepStore(cfg.sweep.checkpoint_file)
+    journal = Path(store.journal_path).read_text().splitlines()
+    entries = store.load()
+    store.compact()
+    compacted = json.loads(Path(store.path).read_text())
+    want_first = SWEEP_GA_POPULATION * SWEEP_GA_GENERATIONS
+    if n_first != want_first or len(ga) != want_first + SWEEP_GA_POPULATION \
+            or stopped["generation"] != SWEEP_GA_GENERATIONS - 2 \
+            or saved["generation"] != SWEEP_GA_GENERATIONS - 1 \
+            or f"Resuming GA from generation {SWEEP_GA_GENERATIONS - 1}" not in resumed \
+            or saved["rng_state"] == stopped["rng_state"] or len(journal) != len(ga) \
+            or compacted != entries or Path(store.journal_path).exists():
+        raise AssertionError(f"genetic: {n_first} then {len(ga) - n_first} trials, "
+                             f"generations {stopped['generation']} then {saved['generation']}, "
+                             f"{len(journal)} journal lines, {len(compacted)} compacted")
+    print(f"sweep genetic: {ga_s:.2f} s, {n_first} trials to generation "
+          f"{stopped['generation']}, resumed from its checkpoint: {len(ga) - n_first} more to "
+          f"generation {saved['generation']}; hall of fame {saved['hall_of_fame']}; "
+          f"{len(journal)} journal lines compacted into {len(compacted)} entries")
+
+    # one trial streamed out of the same clip cache (data.stream)
+    streamed = []
+    stream_cfg = cfg.replace(**{"data.stream": "true",
+                                "sweep.checkpoint_file": str(out / "stream.json")})
+    runner = _sweep_guard(torch, streamed)(stream_cfg,
+                                           store=SweepStore(stream_cfg.sweep.checkpoint_file))
+    _, text = _sweep_main(torch, lambda: runner.run_training({}, test_runs=1))
+    _sweep_hold_trials("streamed", streamed)
+    if "(streaming from" not in text or len(runner.store.load()) != 1:
+        raise AssertionError("streamed trial: no stream line or no store entry")
+    return {"tpe_s": tpe_s, "tpe_summary": summary, "ga_s": ga_s, "ga_trials": len(ga),
+            "streamed_s": streamed[0]["s"]}
+
+
+def _sweep_path(torch, gpu, root: Path, here: Path) -> None:
+    """Phase 19: sweeps. (a) the grid at full width, launches held, the rerun
+    skipped; (b) the best models served; (c) a subprocess trial; (d) TPE and
+    the genetic algorithm on the rehearsal's configuration, small."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    root.mkdir()
+    grid = _sweep_grid(torch, root)
+    child = _sweep_child(torch, root, here)
+    small = _sweep_small(torch, root)
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    print(json.dumps({"sweep": {**grid, **child, **small, "phase_s": secs}, "gpu": gpu}))
+    print(f"sweep phase: {secs:.1f} s")
+
+
 def _bwd_timing(torch, gen, name, dims) -> dict:
     """One backward entry point at the main path's shape: time by events and
     from a CUDA graph, autograd through the plain version (its forward
@@ -4472,6 +4823,7 @@ def main(argv: list[str]) -> int:
         _worker_path(torch, gpu, Path(tmp), decodes)
         _caption_files_path(torch, gpu, Path(tmp) / "captions")
         _aot_path(torch, gpu, Path(tmp))
+        _sweep_path(torch, gpu, Path(tmp) / "sweep", here)
     kernels = _kernel_timings(torch, gen, launches, errs, gpu, zoo["served"])
     kernels += _bwd_rows(torch, gen, train_launches, bwd_errs, zoo["trained"])
     print(json.dumps({"kernels": kernels, "gpu": gpu}))

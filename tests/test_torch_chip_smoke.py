@@ -5,7 +5,8 @@ out, the files phase's AVI writer and CLI hold, the worker phase's
 URL-to-file mapping, local downloader and backend/queue/worker harness,
 the caption files phase's
 videos, annotations, corrupt files and comparisons, and the AOT phase's
-launch rule, eager forward, refusal check and no-zoo list."""
+launch rule, eager forward, refusal check and no-zoo list, and the sweep
+phase's trial guard."""
 
 from __future__ import annotations
 
@@ -604,3 +605,48 @@ def test_aot_no_zoo_names_the_model_code_a_server_must_not_import():
     for name in ("vct_torch.serve.aot", "vct_torch.ops.selective_scan", "vct_torch.device",
                  "vct_torch.caption.vocab"):
         assert not name.startswith(zoo)
+
+
+def test_sweep_phase_fails_a_trial_the_runner_would_log_and_skip(tmp_path, monkeypatch):
+    """Phase 19's guard: a trial that raises is logged by the runner, which
+    goes on, but it is recorded with its traceback, never as a result, and
+    the phase's hold fails naming it."""
+    import torch
+
+    from vct_torch.core.config import Config
+    from vct_torch.sweep.runner import SweepRunner
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda: 0)
+
+    def launch_failed(self, cfg):
+        raise RuntimeError("selective_scan: kernel launch failed")
+
+    monkeypatch.setattr(SweepRunner, "_train_inprocess", launch_failed)
+    trials = []
+    cfg = Config().replace(**{"sweep.checkpoint_file": str(tmp_path / "ckpt.json"),
+                              "sweep.f1_threshold": "-1"})
+    runner = chip_smoke._sweep_guard(torch, trials)(cfg, device="cpu")
+    assert runner.run_training({"model.rnn_type": "mamba"}, test_runs=1) == (-float("inf"), None)
+    assert runner.store.load() == [] and len(trials) == 1
+    assert "kernel launch failed" in trials[0]["error"] and "f1" not in trials[0]
+    with pytest.raises(AssertionError, match="trials raised: \\['mamba lr"):
+        chip_smoke._sweep_hold_trials("grid", trials)
+
+
+def _trial(memory, launches=1):
+    return {"trial": f"t{memory}", "s": 1.0, "f1": 0.5, "accuracy": 0.5, "memory": memory,
+            "launches": {"selective_scan": launches, "lstm_stack": 0}}
+
+
+@pytest.mark.parametrize("trials,error", [
+    ([_trial(100), _trial(100 + chip_smoke.SWEEP_MEMORY_SLACK), _trial(50)], None),
+    ([_trial(100), _trial(101 + chip_smoke.SWEEP_MEMORY_SLACK)], "device memory grew"),
+    ([_trial(100), _trial(100, launches=0)], "launched no kernel"),
+], ids=["flat", "grown", "no_launch"])
+def test_sweep_phase_holds_memory_flat_and_every_trial_to_a_launch(trials, error):
+    if error is None:
+        chip_smoke._sweep_hold_trials("grid", trials)
+    else:
+        with pytest.raises(AssertionError, match=error):
+            chip_smoke._sweep_hold_trials("grid", trials)

@@ -1163,3 +1163,52 @@ def test_exported_model_on_the_card_launches_each_kernel(cuda_device, rnn, tmp_p
                                            lengths=torch.from_numpy(lens).to(cuda_device))
         ref = torch.softmax(model(x).float(), dim=-1).cpu().numpy()
     np.testing.assert_array_equal(got, ref)
+
+
+def test_sweep_trials_train_through_the_kernels_with_flat_memory(cuda_device, tmp_path):
+    """A two-trial grid (Mamba, LSTM; scan_impl "pallas", the feature cache
+    on) through ``vct_torch.sweep``: each trial launches its head's forward
+    and backward kernels as often as its steps say, and the memory a trial
+    leaves allocated does not grow from the first trial to the second."""
+    from vct_torch.core.config import Config
+    from vct_torch.data.batcher import train_test_split
+    from vct_torch.data.synthetic import generate_dummy_data
+    from vct_torch.sweep import SweepRunner, SweepStore, grid_search
+
+    x, y, names = generate_dummy_data(12, 4, 32, 32, 4, seed=1)
+    cfg = Config().replace(**{
+        "model.cnn_backbone": "resnet18", "model.rnn_input_size": "8", "model.hidden_size": "8",
+        "model.rnn_layer": "2", "model.scan_impl": "pallas", "data.sequence_length": "4",
+        "data.img_height": "32", "data.img_width": "32", "train.batch_size": "4",
+        "train.epochs": "2", "train.feature_cache": "true", "train.save_model": "false",
+        "sweep.checkpoint_file": str(tmp_path / "ckpt.json"), "sweep.f1_threshold": "-1",
+        "sweep.test_runs": "1"})
+    kernels = {"mamba": (selective_scan, scan_ops.selective_scan_bwd),
+               "lstm": (rnn_ops.lstm_stack, rnn_ops.lstm_stack_bwd)}
+    launches, memory, failed = {}, [], []
+
+    class Counted(SweepRunner):
+        def _train_once(self, cfg):
+            fns = kernels[cfg.model.rnn_type]
+            for fn in fns:
+                fn.launches = 0
+            try:
+                metrics = super()._train_once(cfg)
+            except Exception as e:  # the runner would log it and go on
+                failed.append(e)
+                raise
+            torch.cuda.synchronize()
+            launches[cfg.model.rnn_type] = [fn.launches for fn in fns]
+            memory.append(torch.cuda.memory_allocated())
+            return metrics
+
+    runner = Counted(cfg, store=SweepStore(cfg.sweep.checkpoint_file), data=(x, y, names))
+    grid_search(runner, {"model.rnn_type": ["mamba", "lstm"]})
+    assert not failed and len(runner.store.load()) == 2
+    x_tr, x_te, _, _ = train_test_split(x, y, cfg.data.val_fraction, cfg.data.split_seed)
+    steps = 2 * -(-len(x_tr) // 4)
+    forwards = steps + -(-len(x_te) // 4)
+    # Mamba: a K3 forward and backward a block; LSTM: one K2 forward a pass,
+    # one K2 backward a layer.
+    assert launches == {"mamba": [2 * forwards, 2 * steps], "lstm": [forwards, 2 * steps]}
+    assert memory[1] <= memory[0] + (16 << 20), memory
