@@ -290,7 +290,30 @@ line):
     on), one whose head kernels never launched fails it, and so does device
     memory that grows past the first trial's level plus 64 MB; the phase's
     seconds;
-20. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
+20. mesh (``_mesh_path``) — training and serving across ranks and replicas
+    (``vct_torch.parallel``) at the deployed configuration (resnet50 in
+    bf16, 3 Mamba blocks, T=60, 80x80, B=32 seeded uint8 clips, dropout
+    0.25), 3 train steps under the deployed Adam (lr 1e-4) and, beside it,
+    SGD at lr 1e-3 (``MESH_OPTIMIZERS``): (a) a world of one rank over NCCL
+    (one NCCL all-reduce checked) against the plain ``Trainer`` on the same
+    card, in turns: losses and every parameter within 1e-6, K3's launches
+    equal (9 forward, 9 backward), the step ms of both; (b) two ranks
+    sharing the card over gloo (``python3 chip_smoke.py --mesh-rank ROOT``,
+    started by ``vct_torch.tools.dryrun.run_world``) at (data 2, model 1)
+    and (data 1, model 2): the first loss and every parameter after the 3
+    steps within 1e-5 of (a)'s under SGD; under Adam every parameter after
+    the first step within 1e-5, except the elements whose gradient in (a)
+    lies below 1e-4 of its tensor's largest, within 2 lr, and after the
+    third within 2 lr a step, the share beyond 1e-5 printed; the
+    parameters' largest change printed beside the limit; K3 9 / 9 on each
+    rank;
+    (c) phase 15's checkpoint served by two replicas on cuda:0 on raw SAD
+    clips (K1, K3) through ``classify_videos`` and a ``data_parallel=2``
+    artifact, within 1e-5 of the one-device path at a replica's rows a
+    forward, K1 and K3 counted a replica; (d) the multichip dryrun over NCCL
+    when ``torch.cuda.device_count() > 1``, else a line saying it was not
+    run; the phase's seconds;
+21. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
     launches, error, time, plain time, bound (K3 forward and backward also at
     the VideoMamba step, B=32 T=16 D=2048 N=16, ``"config": "videomamba"``,
     launches from phase 13) and, for K2/K5, the design,
@@ -4305,6 +4328,402 @@ def _sweep_path(torch, gpu, root: Path, here: Path) -> None:
     print(f"sweep phase: {secs:.1f} s")
 
 
+# The mesh phase: training and serving across ranks and replicas
+# (vct_torch.parallel). The card's machine has one H100, so the data and
+# model axes run as (a) a world of one rank over NCCL, (b) two ranks sharing
+# the card over gloo (gloo takes CUDA tensors for all_reduce, the only
+# collective the port's mesh uses), and (c) two serving replicas on cuda:0;
+# (d) the multichip dryrun over NCCL needs more than one card.
+MESH_STEPS = 3
+MESH_BATCH = 32
+MESH_TOL_ONE = 1e-6  # the mesh path in a world of one against the plain Trainer
+MESH_TOL_RANKS = 1e-5  # two ranks against (a)
+# The deployed optimizer, Adam at lr 1e-4, and beside it SGD at lr 1e-3, a
+# step the loss falls under, whose three steps hold every parameter with no
+# noise floor. Adam's step is about lr * sign(g) where |g| >> eps: where a
+# gradient lies within its rounding of zero, the sign follows the order the
+# ranks sum in (two ranks' losses parted from (a)'s by 2.6e-5 and 7.0e-5 at
+# steps 2 and 3 under Adam, PERF.md §6), so Adam is held after its first
+# step by the rule of tests/test_torch_multirank.py (``_mesh_compare``).
+MESH_OPTIMIZERS = {"adam": {}, "sgd": {"train.optimizer": "sgd", "train.learning_rate": "1e-3"}}
+MESH_NOISE = 1e-4
+MESH_SERVE_TOL = 1e-5
+MESH_SERVE_BATCH = 8
+MESH_GRIDS = ((2, 1), (1, 2))  # (data, model) of the two-rank world
+
+
+def _mesh_cfg(optimizer: str):
+    from vct_torch.core.config import Config
+
+    return Config().replace(**{
+        "data.sequence_length": str(T), "data.img_height": str(H), "data.img_width": str(W),
+        "train.batch_size": str(MESH_BATCH), "model.compute_dtype": "bfloat16",
+        **MESH_OPTIMIZERS[optimizer], **{f"model.{k}": str(v) for k, v in DEPLOYED.items()}})
+
+
+def _mesh_data(root: Path):
+    data = np.load(root / "mesh_data.npz")
+    return data["x"], data["y"]
+
+
+def _mesh_steps(torch, trainer, x, y) -> dict:
+    """MESH_STEPS train steps on the global batch (x, y) at once
+    (``_mesh_stepper``'s results)."""
+    steps = _mesh_stepper(torch, trainer, x, y)
+    for _ in range(MESH_STEPS):
+        next(steps)
+    return next(steps)
+
+
+def _param_diffs(got: dict, want: dict, tol: float, noisy_of=None) -> dict:
+    """Each parameter's elementwise difference, which elements lie beyond
+    ``tol`` (absolute plus relative) and, with ``noisy_of`` (name ->
+    gradient), which lie under MESH_NOISE of their gradient's largest."""
+    out = {}
+    for name, b in want.items():
+        err = (got[name] - b).abs()
+        noisy = (noisy_of[name].abs() < MESH_NOISE * noisy_of[name].abs().max()
+                 if noisy_of is not None else err < 0)
+        out[name] = (err, err > tol + tol * b.abs(), noisy)
+    return out
+
+
+def _mesh_compare(label: str, got: dict, want: dict, tol: float, losses_held: int,
+                  adam_lr: float = 0.0) -> dict:
+    """The first ``losses_held`` losses within ``tol`` (relative) and every
+    parameter element after the last step within ``tol`` (absolute and
+    relative); returns the largest differences beside the parameters'
+    largest change over the steps in ``want``. Later losses are printed,
+    not held: a loss read after an update amplifies the parameters'
+    difference (on the CPU 1.2e-7 in the parameters gave 2.0e-6 in the third
+    loss), so the parameters are what is held.
+
+    Under Adam (``adam_lr``) the rule of tests/test_torch_multirank.py holds
+    the parameters after the first step: within ``tol``, except the elements
+    whose first gradient in ``want`` lies below MESH_NOISE of its tensor's
+    largest, held within 2 ``adam_lr``. Those elements' differences change
+    the later gradients, which Adam's normalised step turns into differences
+    of up to 2 ``adam_lr`` a step anywhere: after the last step every
+    element is held within that reach, and those beyond ``tol`` counted."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"])]
+    if max(rel[:losses_held]) > tol:
+        raise AssertionError(f"{label}: losses {got['losses']} vs {want['losses']}")
+    out = {"limit": tol, "largest_param_change": want["largest_change"]}
+    if adam_lr:
+        first_limit = 2 * adam_lr + tol
+        n_noisy, worst, worst_noisy = 0, 0.0, 0.0
+        diffs = _param_diffs(got["first_params"], want["first_params"], tol,
+                             want["first_grads"])
+        for name, (err, beyond, noisy) in diffs.items():
+            if bool((beyond & ~noisy).any()) or bool((err[noisy] > first_limit).any()):
+                raise AssertionError(f"{label}: {name} differs by {float(err.max())} after "
+                                     f"step 1 (limit {tol}, {first_limit} under the noise floor)")
+            n_noisy += int(noisy.sum())
+            worst = max(worst, float(err[~noisy].max()) if bool((~noisy).any()) else 0.0)
+            worst_noisy = max(worst_noisy, float(err[noisy].max()) if bool(noisy.any()) else 0.0)
+        n_all = sum(err.numel() for err, _, _ in diffs.values())
+        out["first_step"] = {"max_abs_param_diff": worst, "noise_floor_share": n_noisy / n_all,
+                             "max_abs_diff_under_noise_floor": worst_noisy,
+                             "noise_floor_limit": first_limit}
+    reach = 2 * adam_lr * len(want["losses"]) + tol if adam_lr else None
+    worst, n_beyond, n_all = 0.0, 0, 0
+    for name, (err, beyond, _) in _param_diffs(got["params"], want["params"], tol).items():
+        worst = max(worst, float(err.max()))
+        n_beyond, n_all = n_beyond + int(beyond.sum()), n_all + err.numel()
+        if (bool((err > reach).any()) if adam_lr else bool(beyond.any())):
+            raise AssertionError(f"{label}: {name} differs by {float(err.max())} "
+                                 f"(limit {reach if adam_lr else tol})")
+    out.update({"max_abs_param_diff": worst, "beyond_limit_share": n_beyond / n_all,
+                "adam_reach": reach, "loss_rel_diff_by_step": rel})
+    return out
+
+
+def _mesh_rank(torch, root: Path) -> None:
+    """One rank of the two-rank world (b): both ranks on cuda:0 over gloo,
+    each optimizer of MESH_OPTIMIZERS at each grid of MESH_GRIDS in turn;
+    rank 0 writes the results."""
+    from vct_torch.parallel import multihost
+    from vct_torch.parallel.mesh import make_mesh
+    from vct_torch.train.engine import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.initialize(device="cuda:0", backend="gloo")
+    x, y = _mesh_data(root)
+    results = {}
+    for opt in MESH_OPTIMIZERS:
+        cfg = _mesh_cfg(opt)
+        names = [f"class_{i}" for i in range(cfg.model.num_classes)]
+        for data, model in MESH_GRIDS:
+            key = f"{opt}_{data}x{model}"
+            trainer = Trainer(cfg, names, mesh=make_mesh(data=data, model=model))
+            results[key] = _mesh_steps(torch, trainer, x, y)
+            results[key]["sharded"] = len(trainer._specs or {})
+            del trainer
+            torch.cuda.empty_cache()
+    launches = [None] * 2
+    torch.distributed.all_gather_object(
+        launches, {k: v["launches"] for k, v in results.items()})
+    if multihost.is_primary():
+        for k in results:
+            results[k]["launches_by_rank"] = [r[k] for r in launches]
+        torch.save(results, root / "mesh_ranks.pt")
+    multihost.shutdown()
+
+
+def _mesh_serving(torch, gpu, root: Path) -> dict:
+    """(c): phase 15's checkpoint served by two replicas on cuda:0 on raw
+    clips selected by SAD on the card (K1, K3), through classify_videos and
+    a data_parallel=2 artifact, each held against the one-device path at a
+    replica's rows a forward (half the chunk), K3's launches counted a
+    replica. The one-device path at the whole chunk is reported beside it,
+    not held: the bf16 backbone's convolutions round differently at
+    another batch size (6.5e-4 between B=1 and B=32, PERF.md §6)."""
+    from vct_torch.ops import pair_scores as k1
+    from vct_torch.ops import selective_scan as k3
+    from vct_torch.parallel.mesh import make_mesh
+    from vct_torch.serve import aot, deployment
+
+    ck = str(root / "ck")
+    model, class_names, cfg = deployment.load_model(ck)
+    seq_len = cfg.data.sequence_length
+    rng = np.random.RandomState(200)
+    lengths = np.array([FILES_SERVED[i % len(FILES_SERVED)] for i in range(2 * MESH_SERVE_BATCH)],
+                       np.int32)
+    raw = np.zeros((len(lengths), AOT_RAW_LEN, H, W, 3), np.uint8)
+    for i, n in enumerate(lengths):
+        raw[i, :n] = rng.randint(0, 256, (n, H, W, 3), dtype=np.uint8)
+        raw[i, n:] = raw[i, n - 1]
+    k1.pair_scores.launches = 0
+    clips = deployment.sample_decoded_clips([r[:n] for r, n in zip(raw, lengths)], "sad",
+                                            seq_len).cpu().numpy()
+    k1_eager = k1.pair_scores.launches
+    mesh = make_mesh(["cuda:0", "cuda:0"], model=1)
+    replicas = deployment.mesh_replicas(model, mesh)
+    per_replica = [0, 0]
+
+    def count(i):
+        def pre(mod, args):
+            mod._k3_before = k3.selective_scan.launches
+
+        def post(mod, args, out):
+            per_replica[i] += k3.selective_scan.launches - mod._k3_before
+        return pre, post
+
+    hooks = []
+    for i, r in enumerate(replicas):
+        pre, post = count(i)
+        hooks += [r.register_forward_pre_hook(pre), r.register_forward_hook(post)]
+    rows = MESH_SERVE_BATCH // 2  # a replica's rows a forward
+    whole = deployment.classify_videos(model, clips, batch_size=MESH_SERVE_BATCH)
+    k3.selective_scan.launches = 0
+    one = deployment.classify_videos(model, clips, batch_size=rows)
+    k3_one = k3.selective_scan.launches
+    per_replica[:] = [0, 0]
+    two = deployment.classify_videos(model, clips, batch_size=MESH_SERVE_BATCH, mesh=mesh)
+    for h in hooks:
+        h.remove()
+    err = float(np.abs(two - one).max())
+    blocks = cfg.model.rnn_layer
+    chunks = len(clips) // MESH_SERVE_BATCH
+    if (err > MESH_SERVE_TOL or per_replica != [chunks * blocks] * 2
+            or k3_one != 2 * chunks * blocks):
+        raise AssertionError(f"mesh serving: two replicas {err} from one device, K3 launches "
+                             f"a replica {per_replica}, one device {k3_one}")
+
+    # the data_parallel=2 artifact, raw SAD clips, both replicas on cuda:0
+    art = root / "mesh_dp2.vctaot"
+    t0 = time.perf_counter()
+    aot.export_from_checkpoint(ck, str(art), batch_sizes=(MESH_SERVE_BATCH,), data_parallel=2,
+                               device_sampling="sad", raw_len=AOT_RAW_LEN,
+                               devices=["cuda:0", "cuda:0"])
+    export_s = time.perf_counter() - t0
+    sv = aot.AotServable.load(str(art), devices=["cuda:0", "cuda:0"])
+    fn = sv._fns[MESH_SERVE_BATCH]
+    art_launches = [{"pair_scores": 0, "selective_scan": 0} for _ in fn.modules]
+
+    def counted(i, module):
+        def call(*args):
+            before = (k1.pair_scores.launches, k3.selective_scan.launches)
+            out = module(*args)
+            art_launches[i]["pair_scores"] += k1.pair_scores.launches - before[0]
+            art_launches[i]["selective_scan"] += k3.selective_scan.launches - before[1]
+            return out
+        return call
+
+    fn.modules = [counted(i, m) for i, m in enumerate(fn.modules)]
+    probs = sv.classify_raw(raw, lengths)
+    art_err = float(np.abs(probs - one).max())
+    want_art = {"pair_scores": chunks, "selective_scan": chunks * blocks}
+    if art_err > MESH_SERVE_TOL or art_launches != [want_art] * 2:
+        raise AssertionError(f"data_parallel=2 artifact: {art_err} from one device, launches "
+                             f"a replica {art_launches} != {want_art}")
+    out = {"clips": len(clips), "replicas": 2, "rows_a_forward": rows,
+           "classify_max_abs_err": err,
+           "vs_one_device_at_the_whole_chunk": float(np.abs(two - whole).max()),
+           "k3_launches_per_replica": per_replica, "k1_launches_sampling": k1_eager,
+           "artifact_max_abs_err": art_err, "artifact_launches_per_replica": art_launches,
+           "artifact_export_s": export_s, "gpu": gpu}
+    del model, replicas, sv
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_path(torch, gpu, root: Path, here: Path) -> None:
+    """Phase 20: (a) the deployed config's train step through a world of one
+    rank over NCCL against the plain Trainer, in turns; (b) two ranks on the
+    card over gloo at (data 2, model 1) and (data 1, model 2) against (a);
+    (c) two serving replicas on cuda:0 (``_mesh_serving``); (d) the
+    multichip dryrun over NCCL when there is more than one card."""
+    from vct_torch.ops import _build
+    from vct_torch.parallel import multihost
+    from vct_torch.parallel.mesh import make_mesh
+    from vct_torch.tools.dryrun import dryrun_multichip, run_world
+    from vct_torch.train.engine import Trainer
+    from vct_torch.utils.cpumesh import free_port
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    root.mkdir(parents=True, exist_ok=True)
+    cfgs = {opt: _mesh_cfg(opt) for opt in MESH_OPTIMIZERS}
+    n_classes, blocks = cfgs["adam"].model.num_classes, cfgs["adam"].model.rnn_layer
+    rng = np.random.RandomState(190)
+    x = rng.randint(0, 256, (MESH_BATCH, T, H, W, 3), dtype=np.uint8)
+    y = rng.randint(0, n_classes, MESH_BATCH).astype(np.int64)
+    np.savez(root / "mesh_data.npz", x=x, y=y)
+    names = [f"class_{i}" for i in range(n_classes)]
+    want_k3 = {"selective_scan": MESH_STEPS * blocks, "selective_scan_bwd": MESH_STEPS * blocks}
+    adam_lr = {opt: cfg.train.learning_rate if cfg.train.optimizer == "adam" else 0.0
+               for opt, cfg in cfgs.items()}
+
+    # (a) a world of one over NCCL, against the plain Trainer, in turns
+    summary, plains = {}, {}
+    multihost.initialize(coordinator_address=f"127.0.0.1:{free_port()}", num_processes=1,
+                         process_id=0, device="cuda:0")
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError(f"world of one: backend {torch.distributed.get_backend()}")
+        probe = torch.ones(4, device="cuda:0")
+        torch.distributed.all_reduce(probe)  # one NCCL collective on the card
+        if not bool((probe == 1).all()):
+            raise AssertionError("NCCL all_reduce over a world of one changed its input")
+        for opt, cfg in cfgs.items():
+            plain = Trainer(cfg, names, mesh=make_mesh(["cuda:0"]))
+            meshed = Trainer(cfg, names, mesh=make_mesh(data=1, model=1))
+            if not meshed.mesh.distributed or plain.mesh.distributed:
+                raise AssertionError("the mesh Trainer did not take the world's mesh")
+            # In turns: plain's step i, then mesh's step i (MESH_STEPS each).
+            gens = {"plain": _mesh_stepper(torch, plain, x, y, grads=True),
+                    "mesh": _mesh_stepper(torch, meshed, x, y)}
+            for _ in range(MESH_STEPS):
+                for k in ("plain", "mesh"):
+                    next(gens[k])
+            states = {k: next(g) for k, g in gens.items()}
+            del plain, meshed, gens
+            torch.cuda.empty_cache()
+            a_err = _mesh_compare(f"{opt}: world of one vs plain", states["mesh"],
+                                  states["plain"], MESH_TOL_ONE, losses_held=MESH_STEPS,
+                                  adam_lr=adam_lr[opt])
+            for k in ("plain", "mesh"):
+                if states[k]["launches"] != want_k3:
+                    raise AssertionError(f"(a) {opt} {k}: K3 launches {states[k]['launches']} "
+                                         f"!= {want_k3}")
+            plains[opt] = states["plain"]
+            summary[f"world_of_one_{opt}"] = {
+                "backend": "nccl", "optimizer": opt, "losses": states["mesh"]["losses"],
+                "plain_losses": states["plain"]["losses"], **a_err,
+                "step_ms": states["mesh"]["step_ms"],
+                "plain_step_ms": states["plain"]["step_ms"],
+                "k3_launches": states["mesh"]["launches"],
+                "plain_k3_launches": states["plain"]["launches"]}
+            print(json.dumps({f"mesh_a_{opt}": summary[f"world_of_one_{opt}"], "gpu": gpu}),
+                  flush=True)
+    finally:
+        multihost.shutdown()
+
+    # (b) two ranks on the card over gloo, after (a): its step times are alone.
+    t_world = time.perf_counter()
+    run_world(2, [str(here / "chip_smoke.py"), "--mesh-rank", str(root)], device="cuda")
+    world_s = time.perf_counter() - t_world
+    got = torch.load(root / "mesh_ranks.pt", weights_only=False)
+    for key, res in got.items():
+        opt, grid = key.split("_")
+        err = _mesh_compare(f"two ranks {key} vs (a)", res, plains[opt], MESH_TOL_RANKS,
+                            losses_held=1, adam_lr=adam_lr[opt])
+        per_rank = res["launches_by_rank"]
+        data = int(grid.split("x")[0])
+        if any(r != want_k3 for r in per_rank):
+            raise AssertionError(f"(b) {key}: K3 launches by rank {per_rank} != {want_k3}")
+        summary[f"two_ranks_{key}"] = {
+            "backend": "gloo", "device": "cuda:0 (both ranks)", "optimizer": opt,
+            "losses": res["losses"], **{f"{k}_vs_a": v for k, v in err.items()},
+            "step_ms_rank0": res["step_ms"], "k3_launches_by_rank": per_rank,
+            "sharded_params": res["sharded"], "rows_a_rank": MESH_BATCH // data}
+        print(json.dumps({f"mesh_b_{key}": summary[f"two_ranks_{key}"], "gpu": gpu}),
+              flush=True)
+    summary["two_rank_world_s"] = world_s
+
+    # (c) two serving replicas on cuda:0
+    _build.load_kernels()
+    summary["replicas"] = _mesh_serving(torch, gpu, root)
+
+    # (d) NCCL across cards
+    n = torch.cuda.device_count()
+    if n > 1:
+        summary["multichip"] = dryrun_multichip(n, "cuda")
+    else:
+        summary["multichip"] = (f"not run: {n} card; NCCL across cards ran on no "
+                                "machine of this check")
+    summary["gpu"] = gpu
+    print(json.dumps({"mesh": summary}))
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s ({gpu})")
+
+
+def _mesh_stepper(torch, trainer, x, y, grads: bool = False):
+    """A generator: one train step on the global batch (x, y) a ``next``,
+    MESH_STEPS of them, then the run's results: the loss of each step, each
+    trained parameter's whole value after the first and the last step, the
+    largest change of a parameter element over the steps, the K3 launches,
+    each step's milliseconds (host clock around a synchronized step) and,
+    with ``grads`` (an unsharded trainer), each parameter's gradient at the
+    first step."""
+    from vct_torch.ops import selective_scan as k3
+    from vct_torch.train.checkpoint import gather_state_dict
+
+    state = trainer.init_state()
+    trained = set(trainer._trained_names)
+    start = {k: v.float().cpu().clone() for k, v in gather_state_dict(state).items()
+             if k in trained}
+    mask = np.ones(len(x), np.float32)
+    losses, ms = [], []
+    first_grads = None
+    launches = {"selective_scan": 0, "selective_scan_bwd": 0}
+    for _ in range(MESH_STEPS):
+        batch = trainer._put_global(x, y, mask)
+        before = (k3.selective_scan.launches, k3.selective_scan_bwd.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, _ = trainer._train_step(state, *batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches["selective_scan"] += k3.selective_scan.launches - before[0]
+        launches["selective_scan_bwd"] += k3.selective_scan_bwd.launches - before[1]
+        losses.append(float(loss))
+        if len(losses) == 1:
+            first = {k: v.float().cpu().clone() for k, v in gather_state_dict(state).items()
+                     if k in trained}
+            if grads:
+                first_grads = {name: p.grad.float().cpu() if p.grad is not None
+                               else torch.zeros(p.shape)
+                               for name, p in zip(trainer._trained_names, trainer._trained)}
+        yield None
+    params = {k: v.float().cpu() for k, v in gather_state_dict(state).items() if k in trained}
+    change = max(float((params[k] - start[k]).abs().max()) for k in params)
+    yield {"losses": losses, "params": params, "first_params": first, "launches": launches,
+           "step_ms": ms, "largest_change": change, "first_grads": first_grads}
+
+
 def _bwd_timing(torch, gen, name, dims) -> dict:
     """One backward entry point at the main path's shape: time by events and
     from a CUDA graph, autograd through the plain version (its forward
@@ -4764,6 +5183,10 @@ def main(argv: list[str]) -> int:
               file=sys.stderr)
         return 1
     here = Path(__file__).resolve().parent
+    if argv[:1] == ["--mesh-rank"]:  # a rank of phase 20's two-rank world
+        sys.path.insert(0, str(here))
+        _mesh_rank(torch, Path(argv[1]))
+        return 0
     modes = {"--k1-timing": k1_timings, "--bwd-timing": bwd_timings,
              "--step-timing": step_timings}
     if argv[:1] and argv[0] in modes:
@@ -4824,6 +5247,7 @@ def main(argv: list[str]) -> int:
         _caption_files_path(torch, gpu, Path(tmp) / "captions")
         _aot_path(torch, gpu, Path(tmp))
         _sweep_path(torch, gpu, Path(tmp) / "sweep", here)
+        _mesh_path(torch, gpu, Path(tmp), here)
     kernels = _kernel_timings(torch, gen, launches, errs, gpu, zoo["served"])
     kernels += _bwd_rows(torch, gen, train_launches, bwd_errs, zoo["trained"])
     print(json.dumps({"kernels": kernels, "gpu": gpu}))

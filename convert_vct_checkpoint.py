@@ -207,7 +207,11 @@ def convert_train_state(src: str) -> Callable[[str], None]:
     trainer_v = vct_engine.Trainer(vcfg, manifest["class_names"])
     d = vcfg.data
     sample = np.zeros((1, d.sequence_length, d.img_height, d.img_width, 3), np.float32)
-    template = trainer_v.init_state(jax.random.PRNGKey(0), sample)
+    # Only the tree's structure, shapes and dtypes matter (the restore fills
+    # every leaf): traced, not run, since an eager Flax init compiles each
+    # op (about 27 s for resnet18 on a CPU).
+    shapes = jax.eval_shape(trainer_v.init_state, jax.random.PRNGKey(0), sample)
+    template = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
     state_v, epoch, extra = load_train_state(src, template)
     if epoch == 0:
         raise ValueError(f"{src}: vct could not restore its train state (see the warning "

@@ -201,10 +201,9 @@ def test_load_refusals(artifacts, tmp_path, case):
         _rewrite_manifest(path, bad, platform="cuda")
         match = "exported for platform='cuda' but the device here is 'cpu'"
     elif case == "data_parallel":
+        # Two replicas and one CPU device to put them on (devices=[cpu, cpu] serves it).
         _rewrite_manifest(path, bad, n_devices=2)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-            aot.AotServable.load(str(bad), device="cpu")
-        return
+        match = "artifact was exported for 2 devices; only 1 are visible"
     else:
         bad = tmp_path
         match = "not a vct-torch-aot-v1 artifact"
@@ -242,8 +241,14 @@ def test_export_refusals(nets, tmp_path):
                             raw_len=T)
     with pytest.raises(ValueError, match="batch sizes must be positive"):
         aot.export_servable(model, CLASSES, (T, HW, HW, 3), path, batch_sizes=(0, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+    # data_parallel: vct's three refusals, in vct's order.
+    with pytest.raises(ValueError, match="data_parallel must be >= 1, got 0"):
+        aot.export_servable(model, CLASSES, (T, HW, HW, 3), path, data_parallel=0)
+    with pytest.raises(ValueError, match="data_parallel=2 but only 1 devices are visible"):
         aot.export_servable(model, CLASSES, (T, HW, HW, 3), path, data_parallel=2)
+    with pytest.raises(ValueError, match="batch bucket 3 is not a multiple of data_parallel=2"):
+        aot.export_servable(model, CLASSES, (T, HW, HW, 3), path, batch_sizes=(2, 3),
+                            data_parallel=2, devices=["cpu", "cpu"])
     assert not os.path.exists(path)
 
 

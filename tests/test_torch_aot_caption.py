@@ -106,6 +106,30 @@ def test_caption_artifact_matches_vcts(captioners, exported, case):
     np.testing.assert_allclose(scores, eager_scores.numpy(), atol=1e-6)
 
 
+@pytest.mark.parametrize("raw", [True], ids=["raw"])
+def test_caption_artifact_across_two_devices(captioners, exported, raw, tmp_path):
+    """``data_parallel=2`` over two CPU devices: each replica's program
+    decodes half a bucket (raw clips and their lengths split together);
+    tokens equal and scores within 1e-6 of the one-device artifact's on the
+    same clips."""
+    _, one_path = exported(("s2vt", raw))
+    path = str(tmp_path / "two.vctaot")
+    model = captioners["s2vt"][2]
+    vocab = Vocabulary.from_dict(common.vocab().to_dict())
+    aot.export_caption_servable(model, vocab, SHAPE, path, batch_sizes=(2, 4), beam_width=K,
+                                max_len=MAX_LEN, device_sampling=raw,
+                                raw_len=RAW_LEN if raw else None, data_parallel=2,
+                                devices=["cpu", "cpu"])
+    two = aot.CaptionAotServable.load(path, device="cpu", devices=["cpu", "cpu"])
+    one = aot.CaptionAotServable.load(one_path, device="cpu")
+    assert two.n_devices == 2 and one.n_devices == 1
+    arrays = _inputs(raw)
+    decode = (lambda s: s.decode_raw(*arrays)) if raw else (lambda s: s.decode(*arrays))
+    (tokens, scores), (want_tokens, want_scores) = decode(two), decode(one)
+    np.testing.assert_array_equal(tokens, want_tokens)
+    np.testing.assert_allclose(scores, want_scores, atol=1e-6)
+
+
 def test_caption_manifest_and_refusals(exported, tmp_path):
     _, path = exported(("s2vt", True))
     with zipfile.ZipFile(path) as zf:

@@ -13,6 +13,7 @@ from __future__ import annotations
 import json
 
 import pytest
+import torch
 
 import chip_smoke
 
@@ -110,10 +111,65 @@ def test_k1_neighbours_hold_the_plans_choice_and_plans_the_kernel_takes(shape):
         assert (p["design"], p["chunk_pairs"], p["bands"]) == (design, K, nb)
 
 
-@pytest.mark.parametrize("argv", [[], ["--k1-timing"]])
+@pytest.mark.parametrize("argv", [[], ["--k1-timing"], ["--mesh-rank", "/nonexistent"]])
 def test_main_needs_a_card(argv):
     """Without CUDA the script exits non-zero before any phase."""
     assert chip_smoke.main(argv) == 1
+
+
+@pytest.mark.parametrize("shift,ok", [(0.0, True), (5e-6, True), (5e-5, False)])
+def test_mesh_phase_holds_losses_and_every_parameter(shift, ok):
+    """Phase 20's hold: the first losses relative, every parameter element
+    absolute plus relative, within the tolerance; the differences back."""
+    want = {"losses": [1.5, 1.25], "params": {"w": torch.tensor([0.5, -2.0, 0.0])},
+            "largest_change": 0.25}
+    got = {"losses": [1.5 * (1 + shift), 1.25],
+           "params": {"w": want["params"]["w"] + shift}}
+    if ok:
+        out = chip_smoke._mesh_compare("t", got, want, 1e-5, losses_held=2)
+        assert out["max_abs_param_diff"] == pytest.approx(shift, abs=1e-7)
+        assert out["largest_param_change"] == 0.25 and out["limit"] == 1e-5
+        assert out["adam_reach"] is None and "first_step" not in out
+        assert out["loss_rel_diff_by_step"][1] == 0.0
+    else:
+        with pytest.raises(AssertionError, match="t: losses"):
+            chip_smoke._mesh_compare("t", got, want, 1e-5, losses_held=1)
+    got["losses"][1] = 2.0  # a later loss beyond the steps held is reported, not held
+    if ok:
+        assert chip_smoke._mesh_compare("t", got, want, 1e-5, losses_held=1)[
+            "loss_rel_diff_by_step"][1] == pytest.approx(0.6)
+
+
+@pytest.mark.parametrize("noisy_shift,ok", [(1.5e-4, True), (2.5e-4, False)])
+def test_mesh_phase_holds_adam_by_the_noise_floor_after_its_first_step(noisy_shift, ok):
+    """Under Adam (lr 1e-4) the first step's parameters within 1e-5, except
+    an element whose first gradient lies below 1e-4 of its tensor's largest,
+    within 2 lr (2.1e-4); after the last step (2 here) every element within
+    2 lr a step (4.1e-4), those beyond 1e-5 counted."""
+    p0 = torch.tensor([0.5, -2.0, 0.25])
+    want = {"losses": [1.5, 1.25], "params": {"w": p0 + 1e-4}, "first_params": {"w": p0},
+            "largest_change": 2e-4, "first_grads": {"w": torch.tensor([1.0, 0.5, 1e-6])}}
+    got = {"losses": [1.5, 1.25], "params": {"w": want["params"]["w"] + torch.tensor(
+               [0.0, 3e-4, 0.0])},
+           "first_params": {"w": p0 + torch.tensor([0.0, 0.0, noisy_shift])}}
+    if not ok:
+        with pytest.raises(AssertionError, match="after step 1"):
+            chip_smoke._mesh_compare("t", got, want, 1e-5, losses_held=1, adam_lr=1e-4)
+        return
+    out = chip_smoke._mesh_compare("t", got, want, 1e-5, losses_held=1, adam_lr=1e-4)
+    assert out["first_step"]["noise_floor_share"] == pytest.approx(1 / 3)
+    assert out["first_step"]["max_abs_diff_under_noise_floor"] == pytest.approx(noisy_shift,
+                                                                                 rel=1e-4)
+    assert out["first_step"]["max_abs_param_diff"] == 0.0
+    assert out["adam_reach"] == pytest.approx(4.1e-4)
+    assert out["beyond_limit_share"] == pytest.approx(1 / 3)
+    got["first_params"]["w"][0] += 2e-5  # above the floor, the first step holds 1e-5
+    with pytest.raises(AssertionError, match="after step 1"):
+        chip_smoke._mesh_compare("t", got, want, 1e-5, losses_held=1, adam_lr=1e-4)
+    got["first_params"]["w"][0] -= 2e-5
+    got["params"]["w"][1] += 2e-4  # past Adam's reach after the last step
+    with pytest.raises(AssertionError, match="limit 0.00041"):
+        chip_smoke._mesh_compare("t", got, want, 1e-5, losses_held=1, adam_lr=1e-4)
 
 
 def test_training_launches_count_each_kernel_per_pass():

@@ -9,7 +9,9 @@ written by vct's own savers, converted into vct_torch's and read by the port.
   transposes, by parameter name; the step, the plateau-lowered learning rate,
   the epoch and the trainer's counters carried; no dropout generator.
 - Resumed for one epoch with dropout 0, a converted train state and caption
-  state end within 1e-5 (of each tensor's largest) of vct's own resumed epoch.
+  state end within 1e-5 (of each tensor's largest) of vct's own resumed epoch;
+  a train state vct saved on a (4, 2) mesh converts bit for bit and resumes
+  alike on a (2, 2) world of CPU ranks and on one process.
 - The converter's refusals, with nothing written.
 """
 
@@ -215,6 +217,69 @@ def test_converted_train_state_resumes_as_vct_resumes(tmp_path):
     want = _in_port_layout(trainer.model, params, params, jax.device_get(state_v.extra_vars))
     got = {n: p.detach() for n, p in state.model.named_parameters()}
     _assert_within_largest(got, want)
+
+
+def test_train_state_of_vcts_mesh_resumes_across_ranks_and_on_one_process(tmp_path):
+    """vct trains one epoch on a (4, 2) mesh (a process of its own on a
+    virtual 8-device CPU mesh, ``tests/vct_multirank_child.py``) and saves
+    its train state; converted, it holds vct's parameters bit for bit and
+    resumes to epoch 2 on a gloo world of (data 2, model 2) CPU ranks and on
+    one process, SGD with a global-norm clip, dropout 0: the two agree
+    within 1e-6 of each tensor's largest, the epoch losses within 1e-6."""
+    import pickle
+    import shutil
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import torch_multirank_child as child
+    from vct_torch.data.synthetic import generate_dummy_data
+    from vct_torch.tools.dryrun import run_world
+
+    repo = Path(__file__).resolve().parents[1]
+    overrides = {**child.DRYRUN, "train.batch_size": "4", "train.optimizer": "sgd",
+                 "train.learning_rate": "0.05", "train.grad_clip": "1.0",
+                 "train.resume": "true", "model.dropout": "0.0"}
+    x, y, _ = generate_dummy_data(num_samples=8, sequence_length=4, height=32, width=32,
+                                  num_classes=len(NAMES), seed=3)
+    cfg_v = vct_engine.Config().replace(**overrides)
+    variables = _random_variables(vct_engine.build_model(cfg_v.model, 4), x)
+    with open(tmp_path / "vct_state.pkl", "wb") as f:
+        pickle.dump({"overrides": overrides, "variables": variables, "x": x, "y": y,
+                     "names": NAMES}, f)
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": str(repo),
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=8"}
+    done = subprocess.run([sys.executable, str(repo / "tests" / "vct_multirank_child.py"),
+                           str(tmp_path), "state"], env=env, cwd=str(repo),
+                          capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, (done.stdout + done.stderr)[-3000:]
+    with open(tmp_path / "vct_saved.pkl", "rb") as f:
+        saved_v = pickle.load(f)
+
+    dst = tmp_path / "port"
+    assert convert.main([str(tmp_path / "vct_state"), str(dst)]) == 0
+    saved = torch.load(dst / "train_state.pt", weights_only=True)
+    cfg_t = engine.Config().replace(**overrides, **{"train.model_path": str(dst),
+                                                     "train.epochs": "2"})
+    trainer = engine.Trainer(cfg_t, NAMES, device="cpu")
+    stats = {k: v for k, v in variables.items() if k != "params"}
+    params = saved_v["params"]
+    for name, w in _in_port_layout(trainer.model, params, params, stats).items():
+        assert torch.equal(saved["model"][name], w), name
+    assert saved["step"] == saved_v["step"] == 2
+
+    shutil.copytree(dst, tmp_path / "port_ranks")
+    torch.save({"overrides": overrides, "x": x, "y": y}, tmp_path / "port_inputs.pt")
+    run_world(4, ["tests/torch_multirank_child.py", "convert", str(tmp_path)])
+    ranks = torch.load(tmp_path / "convert.pt", weights_only=False)
+    assert ranks["sharded"] and ranks["step"] == 4
+    (state, run), out = _captured(trainer.fit, trainer.init_state(), x, y)
+    assert "Resuming training from epoch 1" in out
+    assert run.epoch_losses[0] == ranks["epoch_losses"][0] == saved_v["epoch_losses"][0]
+    np.testing.assert_allclose(ranks["epoch_losses"], run.epoch_losses, rtol=1e-6, atol=1e-6)
+    for name, w in state.model.state_dict().items():
+        err = float((ranks["params"][name] - w).abs().max())
+        assert err <= 1e-6 * max(float(w.abs().max()), 1e-30), (name, err)
 
 
 # ---------------------------------------------------------------------------

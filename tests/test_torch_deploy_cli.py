@@ -197,9 +197,12 @@ def test_cli_refusals(served, tmp_path, monkeypatch):
         deployment.main(["--model", str(artifact), "--videos", videos, "--device", "cpu"])
     with pytest.raises(SystemExit):
         deployment.main(["--model", ck_port, "--device", "cpu"])
-    monkeypatch.setattr(deployment, "_visible_devices", lambda dev: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        deployment.main(["--model", ck_port, "--videos", videos, "--mesh", "--device", "cpu"])
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(deployment, "visible_devices", lambda dev: [cpu, cpu])
+    rc, out = _run(deployment.main, ["--model", ck_port, "--videos", videos, "--mesh",
+                                     "--device", "cpu"])
+    assert rc == 0 and "Sharding inference over 2 devices" in out
+    monkeypatch.setattr(deployment, "visible_devices", lambda dev: [cpu])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         deployment.main(["--model", ck_port, "--videos", videos])

@@ -433,9 +433,16 @@ def test_dropout_draws_from_the_trainers_generator():
 
 @pytest.mark.parametrize("field,value", [("mesh.model_axis", "2")])
 def test_unported_options_raise_and_name_the_roadmap(field, value):
+    """A model axis of 2 over one process's one device: vct's make_mesh
+    refuses it with the same ValueError (nothing of it is unported now)."""
+    from vct.parallel.mesh import make_mesh as vct_make_mesh
+
     cfg = config.Config().replace(**_overrides(rnn_type="gru"), **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError) as want:
+        vct_make_mesh(jax.devices()[:1], model=int(value))
+    with pytest.raises(ValueError, match="not divisible by model=2") as got:
         engine.Trainer(cfg, NAMES, device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------------------

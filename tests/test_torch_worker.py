@@ -280,11 +280,13 @@ def test_worker_refusals(served, tmp_path, monkeypatch):
         worker.Worker(_serve_cfg(str(artifact), tmp_path), device="cpu")
     cfg = _serve_cfg(ck_port, tmp_path)
     monkeypatch.setenv("VCT_WORKER_MESH", "1")
-    monkeypatch.setattr(deployment, "_visible_devices", lambda dev: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        worker.Worker(cfg, device="cpu")
-    monkeypatch.setattr(deployment, "_visible_devices", lambda dev: 1)
-    assert worker.Worker(cfg, device="cpu").device == torch.device("cpu")  # one card: no change
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(deployment, "visible_devices", lambda dev: [cpu, cpu])
+    mesh = worker.Worker(cfg, device="cpu").mesh  # two devices: a replica each
+    assert mesh.shape == {"data": 2, "model": 1} and list(mesh.grid[:, 0]) == [cpu, cpu]
+    monkeypatch.setattr(deployment, "visible_devices", lambda dev: [cpu])
+    one = worker.Worker(cfg, device="cpu")
+    assert one.device == cpu and one.mesh is None  # one card: no change
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         worker.Worker(cfg)

@@ -25,6 +25,8 @@ feeds training from a dataset directory (``python -m vct_torch.train
 serving CLI (``python -m vct_torch.serve.deployment``). One-file
 ``torch.export`` artifacts of a classifier or a captioner, with the weights
 and the kernels inside, are written and served by ``vct_torch.serve.aot``.
+Training runs across ranks (one process a rank, ``torchrun``) and serving
+across cards (a replica a card) through ``vct_torch.parallel``.
 
 Importing the package, or its host data path, imports no torch: the
 decode workers import that path alone.

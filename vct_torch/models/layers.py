@@ -5,7 +5,8 @@ Port of ``vct/models/layers.py``. Submodules carry the Flax names
 maps weights mechanically. LayerNorm eps is 1e-5 and GELU is exact
 throughout, as in the reference. Dropout draws its masks from the
 generator its ``generator`` attribute names (the trainer seeds one from
-``train.seed``), or from torch's default one.
+``train.seed``), or from torch's default one; on a rank of a mesh it draws
+the global batch's mask and keeps its rows.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from vct_torch.parallel.mesh import ambient_mesh
 
 __all__ = [
     "RMSNorm",
@@ -57,7 +60,17 @@ class Dropout(nn.Module):
             return x
         if self.p == 1.0:
             return x * 0.0
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        mesh = ambient_mesh()
+        if mesh is not None and mesh.distributed and mesh.shape["data"] > 1:
+            # A rank holds its data row's slice of the global batch: draw
+            # the global batch's mask from the shared generator and keep
+            # this rank's rows, so N ranks drop what one process would.
+            n = x.shape[0]
+            shape = (n * mesh.shape["data"],) + tuple(x.shape[1:])
+            keep = torch.rand(shape, generator=self.generator, device=x.device) >= self.p
+            keep = keep[mesh.data_index * n:(mesh.data_index + 1) * n]
+        else:
+            keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
         return x * keep.to(x.dtype) / (1.0 - self.p)
 
 

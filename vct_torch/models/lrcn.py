@@ -15,7 +15,10 @@ autocast and its features come back as f32, so the head always runs in f32
 LSTM/GRU head runs the CUDA recurrences with ``scan_impl="pallas"`` and the
 plain loops otherwise, as ``vct`` maps it. A backbone none of whose
 parameters requires a gradient (frozen, the default) runs under
-``torch.no_grad``, so training records no graph through it.
+``torch.no_grad``, so training records no graph through it. With
+``model.seq_shard`` on a rank mesh (``vct_torch.parallel``), the B·T frames
+of a rank's rows spread over its model axis for the backbone (``vct``'s
+sequence parallelism).
 """
 
 from __future__ import annotations
@@ -28,17 +31,28 @@ from vct_torch.models.backbones import build_backbone
 from vct_torch.models.layers import AdaptDSL, CanonicalAdapter, MultiBinaryHead, MulticlassHead
 from vct_torch.models.recurrent import RNNStack
 from vct_torch.models.ssm import MambaResidualBlock
+from vct_torch.parallel.mesh import ambient_mesh, gather_blocks
 
 __all__ = ["LRCN", "backbone_features", "build_lrcn"]
 
 
-def backbone_features(backbone: nn.Module, x, dtype: torch.dtype):
+def backbone_features(backbone: nn.Module, x, dtype: torch.dtype, mesh=None):
     """(B, T, H, W, 3) clips -> (B, T, F) f32 features of ``backbone`` over
     the flattened B·T frames, under bf16 autocast when ``dtype`` is bf16;
-    under ``torch.no_grad`` when no backbone parameter requires a gradient."""
+    under ``torch.no_grad`` when no backbone parameter requires a gradient.
+
+    With ``mesh`` (a rank mesh whose model axis divides B·T), each rank runs
+    the backbone over its 1/model slice of the frames and the features are
+    joined over the model axis, gradients passed back to each rank's slice
+    (``vct``'s ``seq_shard``)."""
     b, t = x.shape[0], x.shape[1]
-    # (B·T, H, W, 3) -> NCHW view; its strides are channels-last already.
-    frames = x.reshape((b * t,) + tuple(x.shape[2:])).permute(0, 3, 1, 2)
+    frames = x.reshape((b * t,) + tuple(x.shape[2:]))
+    split = (mesh is not None and mesh.distributed and mesh.shape["model"] > 1
+             and (b * t) % mesh.shape["model"] == 0)
+    if split:
+        frames = mesh.block(frames, 0, "model")
+    # (frames, H, W, 3) -> NCHW view; its strides are channels-last already.
+    frames = frames.permute(0, 3, 1, 2)
     with torch.set_grad_enabled(torch.is_grad_enabled()
                                 and any(p.requires_grad for p in backbone.parameters())):
         if dtype == torch.bfloat16:
@@ -46,7 +60,10 @@ def backbone_features(backbone: nn.Module, x, dtype: torch.dtype):
                 feats = backbone(frames)
         else:
             feats = backbone(frames.to(dtype))
-    return feats.to(torch.float32).reshape(b, t, -1)
+    feats = feats.to(torch.float32).reshape(frames.shape[0], -1)
+    if split:
+        feats = gather_blocks(feats, mesh, 0, "model")
+    return feats.reshape(b, t, -1)
 
 
 class LRCN(nn.Module):
@@ -69,8 +86,10 @@ class LRCN(nn.Module):
         adapt_mode: str = "",
         scan_impl: str = "associative",
         dtype: torch.dtype = torch.float32,
+        seq_shard: bool = False,
     ):
         super().__init__()
+        self.seq_shard = seq_shard
         if rnn_out not in ("all", "last"):
             raise ValueError(f"rnn_out must be 'all' or 'last', got {rnn_out!r}")
         self.rnn_out = rnn_out
@@ -110,7 +129,8 @@ class LRCN(nn.Module):
     def forward(self, x, *, from_features: bool = False, features_only: bool = False):
         if from_features:
             return self._head(x)
-        feats = backbone_features(self.cnn_backbone, x, self.dtype)
+        feats = backbone_features(self.cnn_backbone, x, self.dtype,
+                                  ambient_mesh() if self.seq_shard else None)
         if features_only:
             return feats
         return self._head(feats)
@@ -143,4 +163,5 @@ def build_lrcn(cfg: ModelConfig, sequence_length: int) -> LRCN:
         adapt_mode=cfg.adapt if cfg.use_adapt_dsl else "",
         scan_impl=cfg.scan_impl,
         dtype=dtype,
+        seq_shard=cfg.seq_shard,
     )

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vct_torch.models.layers import Dropout
+from vct_torch.parallel.mesh import ambient_mesh, sum_over
 from vct_torch.models.recurrent import GRU, LSTM
 
 __all__ = ["LRCN2", "TimeDistributedCNNLSTM"]
@@ -40,14 +41,24 @@ _MOMENTUM = 0.9  # Flax's BatchNorm momentum in vct
 
 class _BatchStatsNorm(nn.BatchNorm2d):
     """BatchNorm with Flax's training semantics: batch statistics in train
-    mode (the variance biased, E[x²] - E[x]²), the running ones updated as
-    ``m * running + (1 - m) * batch``; running statistics in eval mode."""
+    mode (the variance biased, E[x²] - E[x]²; over the global batch on a
+    rank of a mesh), the running ones updated as ``m * running + (1 - m) *
+    batch``; running statistics in eval mode."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        mesh = ambient_mesh()
+        if mesh is not None and mesh.distributed and mesh.shape["data"] > 1:
+            # The statistics of the global batch, as vct's one program has
+            # them: sums over the data axis's ranks (their gradients too).
+            count = x.shape[0] * x.shape[2] * x.shape[3] * mesh.shape["data"]
+            sums = sum_over(torch.stack([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3))]),
+                            mesh, "data")
+            mean, sq = sums[0] / count, sums[1] / count
+        else:
+            mean, sq = x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))
+        var = torch.clamp_min(sq - mean * mean, 0.0)
         with torch.no_grad():
             self.running_mean.mul_(_MOMENTUM).add_(mean.detach(), alpha=1 - _MOMENTUM)
             self.running_var.mul_(_MOMENTUM).add_(var.detach(), alpha=1 - _MOMENTUM)

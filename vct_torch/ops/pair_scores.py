@@ -60,6 +60,8 @@ ROUND_S = 0.5e-6
 FIXED_S = {"bands": 2.9e-6, "chunks": 2.0e-6}
 
 
+# Keyed on the shape alone, not the card: right on a node of identical cards
+# (every rank and replica of a mesh reads one plan).
 @functools.lru_cache(maxsize=None)
 def plan(B: int, L: int, H: int, W: int, C: int, chunk_pairs: int = 0, bands: int = 0,
          design: str = "") -> dict:

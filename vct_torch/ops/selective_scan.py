@@ -95,6 +95,8 @@ def decode_plan(code: int, N: int, chunk_unit: int = 32) -> dict:
     }
 
 
+# Keyed on the shape alone, not the card: right on a node of identical cards
+# (every rank and replica of a mesh reads one plan).
 @functools.lru_cache(maxsize=None)
 def plan_code(batch: int, D: int, N: int, states_per_lane: int = 0, block_threads: int = 0,
               chunk_steps: int = 0) -> int:
@@ -120,6 +122,8 @@ def plan(batch: int, D: int, N: int) -> dict:
     return decode_plan(plan_code(batch, D, N), N)
 
 
+# Keyed on the shape alone, not the card: right on a node of identical cards
+# (every rank and replica of a mesh reads one plan).
 @functools.lru_cache(maxsize=None)
 def _bwd_layout(batch: int, L: int, D: int, N: int) -> tuple[int, int, int]:
     """The backward's packed plan, scratch floats and counters at a shape,

@@ -56,6 +56,8 @@ MIN_BLOCKS = 9 * RESIDENT_BLOCKS // 10
 _FRAME_COST, _PAIR_COST, _ROW_COST, _BLOCK_COST = 14, 21, 20, 400
 
 
+# Keyed on the shape alone, not the card: right on a node of identical cards
+# (every rank and replica of a mesh reads one plan).
 @functools.lru_cache(maxsize=None)
 def plan(B: int, L: int, H: int, W: int, C: int, chunk_pairs: int = 0,
          band_rows: int = 0) -> dict:

@@ -22,8 +22,15 @@ weights there and calls the CUDA kernels, so it serves on the card, and one
 exported on the CPU serves on the CPU. The manifest's ``format`` is
 ``vct-torch-aot-v1`` (``vct-torch-aot-caption-v1`` for captioners), so
 neither package mistakes the other's file; a ``vct`` file (StableHLO for
-JAX) is refused, naming the converter. ``data_parallel`` above 1 is not
-ported (ROADMAP Queue 1 item 8).
+JAX) is refused, naming the converter.
+
+``data_parallel=N`` makes one artifact that serves across N devices: each
+bucket's program is exported at the bucket's 1/N rows (every bucket a
+multiple of N), the servable loads one replica a device, splits every chunk
+(raw clips and their lengths together) into N slices, runs each on its
+device and joins the rows in order; ``vct``'s program spans an N-device
+mesh instead. Loading needs N devices (``devices=``: a list, e.g. ``[cpu,
+cpu]`` on the CPU; default the first N visible cards).
 
 Usage::
 
@@ -68,23 +75,68 @@ def _register_ops() -> None:
     import vct_torch.ops.ssim  # noqa: F401
 
 
-def _check_data_parallel(n_dev: int) -> int:
+def _check_data_parallel(n_dev: int, devices) -> int:
+    """``vct``'s refusals, in its order: fewer than one device, then more
+    than the devices there are (the bucket check follows, per bucket)."""
     n_dev = int(n_dev)
     if n_dev < 1:
         raise ValueError(f"data_parallel must be >= 1, got {n_dev}")
-    if n_dev > 1:
-        raise NotImplementedError(
-            f"data_parallel={n_dev}: artifacts served across several cards are not "
-            "ported to vct_torch yet (ROADMAP Queue 1 item 8)"
+    if n_dev > len(devices):
+        raise ValueError(
+            f"data_parallel={n_dev} but only {len(devices)} devices are visible at export time"
         )
     return n_dev
 
 
-def _make_stager(device):
-    """Host chunk -> tensor on ``device``; shared by both servables."""
+def _serving_devices(device, devices, n_dev: int) -> list:
+    """The devices a servable's replicas run on: ``devices`` (a list), else
+    the first ``n_dev`` visible devices of ``device``'s type."""
+    import torch
+
+    from vct_torch.parallel.mesh import visible_devices
+
+    found = ([_indexed(torch.device(d)) for d in devices] if devices is not None
+             else visible_devices(device))
+    if n_dev == 1 and devices is None:
+        return [device]
+    if len(found) < n_dev:
+        raise ValueError(f"artifact was exported for {n_dev} devices; only {len(found)} are "
+                         "visible")
+    return found[:n_dev]
+
+
+class _Replicas:
+    """A bucket's program on each device of a data-parallel servable: the
+    host chunk's arrays split into one slice a replica, each slice staged
+    on its replica's device, the outputs joined on the host in order.
+    Every replica's program is started before any output is copied back
+    (a copy to the host waits for its device), so the cards run at once."""
+
+    def __init__(self, modules, devices):
+        self.modules, self.devices = modules, devices
+
+    def __call__(self, *arrays):
+        import torch
+
+        k = len(arrays[0]) // len(self.modules)
+        outs = []
+        for i, (module, device) in enumerate(zip(self.modules, self.devices)):
+            res = module(*[torch.from_numpy(np.ascontiguousarray(a[i * k:(i + 1) * k]))
+                           .to(device) for a in arrays])
+            outs.append(tuple(res) if isinstance(res, (tuple, list)) else (res,))
+        joined = tuple(torch.cat([r.cpu() for r in parts]) for parts in zip(*outs))
+        return joined if len(joined) > 1 else joined[0]
+
+
+def _make_stager(device, n_dev: int = 1):
+    """Host chunk -> tensor on ``device``; shared by both servables. A
+    data-parallel servable's replicas stage their own slices: the chunk
+    stays on the host."""
     import torch
 
     def stage(chunk):
+        if n_dev > 1:
+            return chunk
         return torch.from_numpy(np.ascontiguousarray(chunk)).to(device)
 
     return stage
@@ -153,6 +205,15 @@ def _model_device(model):
     return next(model.parameters()).device
 
 
+def _indexed(device):
+    """``cuda`` as the card it names (``cuda:<current>``)."""
+    import torch
+
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def _check_raw_len(raw_len, device_sampling, T: int, what: str) -> int:
     if raw_len is not None and not device_sampling:
         raise ValueError(
@@ -165,17 +226,24 @@ def _check_raw_len(raw_len, device_sampling, T: int, what: str) -> int:
     return raw_len
 
 
-def _export_buckets(module, batch_sizes, input_shape, raw_len, raw: bool, device) -> dict:
+def _export_buckets(module, batch_sizes, input_shape, raw_len, raw: bool, device,
+                    n_dev: int = 1) -> dict:
     """``torch.export.save`` bytes of ``module`` per batch bucket, in eval
     mode under ``torch.no_grad``: (b, T, H, W, C) f32 clips, or (b, raw_len,
-    H, W, C) uint8 clips and (b,) int32 lengths."""
+    H, W, C) uint8 clips and (b,) int32 lengths, with b the bucket's rows a
+    replica (the bucket over ``n_dev``)."""
     import torch
 
-    blobs = {}
-    module.eval()
-    for b in sorted(set(int(b) for b in batch_sizes)):
+    buckets = sorted(set(int(b) for b in batch_sizes))
+    for b in buckets:
         if b <= 0:
             raise ValueError(f"batch sizes must be positive, got {b}")
+        if b % n_dev:
+            raise ValueError(f"batch bucket {b} is not a multiple of data_parallel={n_dev}")
+    blobs = {}
+    module.eval()
+    for bucket in buckets:
+        b = bucket // n_dev
         if raw:
             args = (torch.zeros((b, raw_len) + tuple(input_shape[1:]), dtype=torch.uint8,
                                 device=device),
@@ -193,7 +261,7 @@ def _export_buckets(module, batch_sizes, input_shape, raw_len, raw: bool, device
             # the archive writer reports; it saves their whole storage.
             warnings.filterwarnings("ignore", message="No complete tensor found in the group")
             torch.export.save(program, buf)
-        blobs[b] = buf.getvalue()
+        blobs[bucket] = buf.getvalue()
     return blobs
 
 
@@ -215,6 +283,7 @@ def export_servable(
     sampling_method: Optional[str] = None,
     device_sampling: Optional[str] = None,
     raw_len: Optional[int] = None,
+    devices=None,
 ) -> None:
     """Write ``softmax(model(x))`` for each batch bucket into one file.
 
@@ -230,12 +299,20 @@ def export_servable(
     true lengths (B,) int32 and run frame scoring, top-T selection and /255
     (``vct_torch.data.preprocess.device_sample_clips``) before the forward.
     Serve with ``AotServable.classify_raw``. ``raw_len`` defaults to 2T.
+
+    ``data_parallel=N`` writes programs that N replicas serve together
+    (see the module's note); ``devices`` are the devices counted for it
+    (default: the visible ones of the model's device type).
     """
     import torch
 
+    from vct_torch.parallel.mesh import visible_devices
+
     T = int(input_shape[0])
     raw_len = _check_raw_len(raw_len, device_sampling, T, "sampler")
-    n_dev = _check_data_parallel(data_parallel)
+    device = _model_device(model)
+    n_dev = _check_data_parallel(data_parallel, devices if devices is not None
+                                 else visible_devices(device))
     if device_sampling:
         from vct_torch.data.preprocess import device_sample_clips
 
@@ -258,9 +335,8 @@ def export_servable(
             def forward(self, x):
                 return torch.softmax(self.model(x).to(torch.float32), dim=-1)
 
-    device = _model_device(model)
     blobs = _export_buckets(Forward(), batch_sizes, input_shape, raw_len,
-                            bool(device_sampling), device)
+                            bool(device_sampling), device, n_dev)
     manifest = {
         "format": _FORMAT,
         "class_names": list(class_names),
@@ -284,14 +360,17 @@ def export_from_checkpoint(
     device_sampling: Optional[str] = None,
     raw_len: Optional[int] = None,
     device=None,
+    devices=None,
 ) -> None:
     """Build an artifact from a vct_torch checkpoint directory, exported on
     ``device`` (default: the card); geometry and ``sampling_method`` come
     from the checkpoint's config."""
+    from vct_torch.parallel.mesh import visible_devices
     from vct_torch.serve.deployment import load_model
 
-    _check_data_parallel(data_parallel)
-    model, class_names, cfg = load_model(model_dir, device=resolve_device(device))
+    dev = resolve_device(device)
+    _check_data_parallel(data_parallel, devices if devices is not None else visible_devices(dev))
+    model, class_names, cfg = load_model(model_dir, device=dev)
     export_servable(
         model,
         class_names,
@@ -302,6 +381,7 @@ def export_from_checkpoint(
         sampling_method=cfg.data.sampling_method,
         device_sampling=device_sampling,
         raw_len=raw_len,
+        devices=devices,
     )
 
 
@@ -316,6 +396,7 @@ def export_caption_servable(
     device_sampling: bool = False,
     raw_len: Optional[int] = None,
     data_parallel: int = 1,
+    devices=None,
 ) -> None:
     """Write the whole captioning pipeline per batch bucket: CNN features,
     encoder and beam search (``vct_torch.caption.beam.beam_search``, its
@@ -329,11 +410,12 @@ def export_caption_servable(
     programs take ragged raw uint8 clips (B, raw_len, H, W, 3) plus true
     lengths (B,) and select and /255 on the device before the encoder;
     serve with ``CaptionAotServable.caption_raw``. ``raw_len`` defaults to
-    2T.
+    2T. ``data_parallel``/``devices``: as ``export_servable``'s.
     """
     import torch
 
     from vct_torch.caption.beam import beam_search
+    from vct_torch.parallel.mesh import visible_devices
 
     if beam_width < 1:
         raise ValueError(f"beam_width must be >= 1, got {beam_width}")
@@ -341,7 +423,9 @@ def export_caption_servable(
         raise ValueError(f"max_len must be >= 1, got {max_len}")
     T = int(input_shape[0])
     raw_len = _check_raw_len(raw_len, device_sampling, T, "selection")
-    n_dev = _check_data_parallel(data_parallel)
+    device = _model_device(model)
+    n_dev = _check_data_parallel(data_parallel, devices if devices is not None
+                                 else visible_devices(device))
 
     if device_sampling:
         from vct_torch.data.preprocess import device_sample_clips
@@ -366,9 +450,8 @@ def export_caption_servable(
             def forward(self, video):
                 return beam_search(self.model, video, beam_width=beam_width, max_len=max_len)
 
-    device = _model_device(model)
     blobs = _export_buckets(Forward(), batch_sizes, input_shape, raw_len,
-                            bool(device_sampling), device)
+                            bool(device_sampling), device, n_dev)
     manifest = {
         "format": _CAPTION_FORMAT,
         "vocab": vocab.to_dict(),
@@ -400,6 +483,7 @@ def export_from_caption_checkpoint(
     raw_len: Optional[int] = None,
     data_parallel: int = 1,
     device=None,
+    devices=None,
 ) -> None:
     """Build a caption artifact from a vct_torch caption checkpoint, exported
     on ``device`` (default: the card). The manifest records config and
@@ -408,9 +492,11 @@ def export_from_caption_checkpoint(
     image size). ``device_sampling``/``raw_len``: see
     ``export_caption_servable``."""
     from vct_torch.caption.train import restore_caption_trainer
+    from vct_torch.parallel.mesh import visible_devices
 
-    _check_data_parallel(data_parallel)
-    trainer, state, cfg = restore_caption_trainer(ckpt_dir, device=resolve_device(device))
+    dev = resolve_device(device)
+    _check_data_parallel(data_parallel, devices if devices is not None else visible_devices(dev))
+    trainer, state, cfg = restore_caption_trainer(ckpt_dir, device=dev)
     export_caption_servable(
         state.model,
         trainer.vocab,
@@ -422,13 +508,18 @@ def export_from_caption_checkpoint(
         device_sampling=device_sampling,
         raw_len=raw_len,
         data_parallel=data_parallel,
+        devices=devices,
     )
 
 
-def _read_artifact(path: str, fmt: str, other: str, other_loader: str, device):
-    """(manifest, {bucket: program module}) of an artifact of format
-    ``fmt`` on ``device``: the platform is checked before any program is
-    loaded, and the kernel operators are registered first."""
+def _read_artifact(path: str, fmt: str, other: str, other_loader: str, device,
+                   devices=None):
+    """(manifest, {bucket: program module}, replica devices) of an artifact
+    of format ``fmt`` on ``device``: the platform is checked before any
+    program is loaded, and the kernel operators are registered first. A
+    data-parallel artifact's bucket is a ``_Replicas`` over ``devices``
+    (a program loaded once a device; on another card than the one it was
+    exported on, its tensors moved there)."""
     import torch
 
     try:
@@ -453,12 +544,32 @@ def _read_artifact(path: str, fmt: str, other: str, other_loader: str, device):
             )
         if found != fmt:
             raise ValueError(f"{path}: not a {fmt} artifact (format={found!r})")
-        _check_data_parallel(manifest.get("n_devices", 1))
+        n_dev = int(manifest.get("n_devices", 1))
+        if n_dev < 1:
+            raise ValueError(f"data_parallel must be >= 1, got {n_dev}")
         _check_platform(manifest["platform"], device)
+        replicas = _serving_devices(device, devices, n_dev)
+        for d in replicas:
+            _check_platform(manifest["platform"], d)
         _register_ops()
-        fns = {b: torch.export.load(io.BytesIO(zf.read(f"batch_{b}.pt2"))).module()
-               for b in manifest["batch_sizes"]}
-    return manifest, fns
+        fns = {}
+        for b in manifest["batch_sizes"]:
+            blob = zf.read(f"batch_{b}.pt2")
+            if n_dev == 1:
+                fns[b] = torch.export.load(io.BytesIO(blob)).module()
+                continue
+            loaded = {}
+            for d in replicas:
+                if str(d) not in loaded:
+                    program = torch.export.load(io.BytesIO(blob))
+                    held = next((t.device for t in program.state_dict.values()), d)
+                    if _indexed(held) != d:  # exported on another card than this replica's
+                        from torch.export.passes import move_to_device_pass
+
+                        program = move_to_device_pass(program, d)
+                    loaded[str(d)] = program.module()
+            fns[b] = _Replicas([loaded[str(d)] for d in replicas], replicas)
+    return manifest, fns, replicas
 
 
 def _warmup_servable(sv, dense_fn, raw_fn) -> None:
@@ -502,7 +613,7 @@ def _check_raw(raw, lengths, raw_len: int, input_shape) -> Tuple[np.ndarray, np.
 class AotServable:
     """A loaded artifact: the programs per bucket and the label manifest."""
 
-    def __init__(self, manifest: dict, fns: dict, device):
+    def __init__(self, manifest: dict, fns: dict, device, devices=None):
         self.class_names: List[str] = list(manifest["class_names"])
         self.input_shape = tuple(manifest["input_shape"])
         self.platform: str = manifest["platform"]
@@ -511,9 +622,10 @@ class AotServable:
         self.device_sampling: Optional[str] = manifest.get("device_sampling")
         self.raw_len: Optional[int] = manifest.get("raw_len")
         self.device = device
-        self._fns = fns  # batch size -> the program's module
+        self.devices = devices if devices is not None else [device]
+        self._fns = fns  # batch size -> the program's module (or its replicas)
         self._buckets = sorted(fns)
-        self._stage = _make_stager(device)
+        self._stage = _make_stager(device, self.n_devices)
 
     @property
     def buckets(self) -> Tuple[int, ...]:
@@ -522,13 +634,14 @@ class AotServable:
         return tuple(self._buckets)
 
     @classmethod
-    def load(cls, path: str, device=None) -> "AotServable":
+    def load(cls, path: str, device=None, devices=None) -> "AotServable":
         """Load on ``device`` (default: the card), which must be the
-        artifact's platform."""
+        artifact's platform; a data-parallel artifact on ``devices`` (a
+        list; default the first ``n_devices`` visible ones)."""
         device = resolve_device(device)
-        manifest, fns = _read_artifact(path, _FORMAT, _CAPTION_FORMAT,
-                                       "CaptionAotServable.load", device)
-        return cls(manifest, fns, device)
+        manifest, fns, replicas = _read_artifact(path, _FORMAT, _CAPTION_FORMAT,
+                                                 "CaptionAotServable.load", device, devices)
+        return cls(manifest, fns, device, replicas)
 
     def _run_chunks(self, arrays: Tuple[np.ndarray, ...]) -> np.ndarray:
         (probs,) = _run_bucketed(
@@ -572,7 +685,7 @@ class CaptionAotServable:
     """A loaded captioning artifact: the beam-search programs per bucket and
     the vocabulary; clips in, word lists out, no model zoo in the path."""
 
-    def __init__(self, manifest: dict, fns: dict, device):
+    def __init__(self, manifest: dict, fns: dict, device, devices=None):
         from vct_torch.caption.vocab import Vocabulary
 
         self.input_shape = tuple(manifest["input_shape"])
@@ -587,9 +700,10 @@ class CaptionAotServable:
         self.n_devices: int = int(manifest.get("n_devices", 1))
         self.vocab = Vocabulary.from_dict(manifest["vocab"])
         self.device = device
+        self.devices = devices if devices is not None else [device]
         self._fns = fns
         self._buckets = sorted(fns)
-        self._stage = _make_stager(device)
+        self._stage = _make_stager(device, self.n_devices)
 
     @property
     def buckets(self) -> Tuple[int, ...]:
@@ -597,13 +711,13 @@ class CaptionAotServable:
         return tuple(self._buckets)
 
     @classmethod
-    def load(cls, path: str, device=None) -> "CaptionAotServable":
+    def load(cls, path: str, device=None, devices=None) -> "CaptionAotServable":
         """Load on ``device`` (default: the card), which must be the
-        artifact's platform."""
+        artifact's platform; ``devices`` as ``AotServable.load``'s."""
         device = resolve_device(device)
-        manifest, fns = _read_artifact(path, _CAPTION_FORMAT, _FORMAT, "AotServable.load",
-                                       device)
-        return cls(manifest, fns, device)
+        manifest, fns, replicas = _read_artifact(path, _CAPTION_FORMAT, _FORMAT,
+                                                 "AotServable.load", device, devices)
+        return cls(manifest, fns, device, replicas)
 
     def _decode(self, arrays):
         tokens, scores = _run_bucketed(
@@ -679,7 +793,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     parser.add_argument(
         "--data_parallel", type=int, default=1,
-        help="cards to serve across (only 1 is ported; ROADMAP Queue 1 item 8)",
+        help="devices the artifact serves across, one replica each (every bucket a "
+             "multiple of it)",
     )
     parser.add_argument(
         "--device_sampling", default=None,

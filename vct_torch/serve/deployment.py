@@ -11,7 +11,10 @@ Port of ``vct/serve/deployment.py``:
   ``ssim_most_unique``) from the ``ssim_pair_scores`` kernel.
 * ``classify_videos`` — batched softmax probabilities, one chunk moved to
   the device at a time, the final partial chunk zero-padded to
-  ``batch_size`` so every forward has one shape.
+  ``batch_size`` so every forward has one shape. With ``mesh`` (a device
+  mesh of ``vct_torch.parallel``) one model replica a data row: each chunk
+  is padded to a multiple of the data axis, each row's slice runs on its
+  row's device, and the rows come back in order.
 * ``classify_and_display`` — the reference's output contract: per-video
   sorted labels and scores with a timestamp as JSON, ``Processed <name>:
   <label>`` lines and the label counts.
@@ -26,10 +29,9 @@ Port of ``vct/serve/deployment.py``:
   ``.vctaot`` artifact file (``vct_torch.serve.aot.AotServable``: weights
   and forward in one file, no model zoo in the path) and ``--videos DIR``
   (host sampling through ``load_dataset_inference``, or
-  ``--device_sampling``) or ``--frames DIR``; ``--post``; ``--device``.
-
-Not ported: mesh serving over more than one card (ROADMAP Queue 1 item 8),
-which ``--mesh`` refuses (on one card it changes nothing, as in ``vct``).
+  ``--device_sampling``) or ``--frames DIR``; ``--post``; ``--device``;
+  ``--mesh`` serves across every visible card (on one card it changes
+  nothing, as in ``vct``).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import re
 import sys
 import urllib.error
 import urllib.request
+import weakref
 from collections import Counter
 from datetime import datetime
 from typing import TYPE_CHECKING, List, Optional, Sequence
@@ -48,6 +51,7 @@ from typing import TYPE_CHECKING, List, Optional, Sequence
 import numpy as np
 
 from vct_torch.device import resolve_device
+from vct_torch.parallel.mesh import make_mesh, visible_devices
 
 if TYPE_CHECKING:
     import torch
@@ -160,42 +164,76 @@ def sample_decoded_clips(frames_per_video: Sequence[np.ndarray], sampling: str,
     return torch.stack(clips)
 
 
-def classify_videos(model, clips, batch_size: int = 32, device=None) -> np.ndarray:
+_replicas = weakref.WeakKeyDictionary()  # model -> (mesh devices, replicas)
+
+
+def mesh_replicas(model, mesh) -> list:
+    """One replica of ``model`` a data row of ``mesh`` (a device mesh), on
+    the row's device: the model itself where it lives there, a copy
+    elsewhere; kept for the next call with the same devices (the worker
+    serves many requests with one model)."""
+    from vct_torch.parallel.mesh import host_to_device
+
+    key = tuple(str(row[0]) for row in mesh.grid)
+    cached = _replicas.get(model)
+    if cached is None or cached[0] != key:
+        cached = (key, host_to_device(model, mesh))
+        _replicas[model] = cached
+    return cached[1]
+
+
+def classify_videos(model, clips, batch_size: int = 32, device=None, mesh=None) -> np.ndarray:
     """Softmax probabilities (N, num_classes) for (N, T, H, W, 3) clips.
 
     ``model`` must live on ``device`` (default: the card). ``clips`` stay
     where they are (host memory for the worker and the CLI): one
-    ``batch_size`` chunk at a time is moved to ``device``, so the device
+    ``batch_size`` chunk at a time is moved to the device, so the device
     holds one chunk, however many clips there are. The final partial chunk
     zero-pads up to ``batch_size``.
+
+    With ``mesh`` (a device mesh, ``vct_torch.parallel.make_mesh``) the
+    chunk pads up to a multiple of the data axis and splits into one slice
+    a data row, each run by the row's replica on the row's device (one
+    chunk on the cards at a time still), the rows gathered in order.
     """
     import torch
 
-    dev = resolve_device(device)
+    if mesh is not None and mesh.distributed:
+        raise ValueError(f"{mesh}: serving spans the cards of one process; pass a device "
+                         "mesh (make_mesh(devices))")
+    if mesh is not None and mesh.size > 1:
+        rows = mesh.shape["data"]
+        batch_size = -(-batch_size // rows) * rows
+        replicas = list(zip(mesh_replicas(model, mesh), [row[0] for row in mesh.grid]))
+    else:
+        replicas = [(model, resolve_device(device))]
+    k = batch_size // len(replicas)
     probs = []
     with torch.inference_mode():
         for start in range(0, len(clips), batch_size):
-            chunk = torch.as_tensor(clips[start:start + batch_size]).to(dev, torch.float32)
+            chunk = torch.as_tensor(clips[start:start + batch_size])
             n = len(chunk)
             if n < batch_size:
                 pad = chunk.new_zeros((batch_size - n,) + tuple(chunk.shape[1:]))
                 chunk = torch.cat([chunk, pad])
-            p = torch.softmax(model(chunk).to(torch.float32), dim=-1)
-            probs.append(p[:n].cpu().numpy())
-            del chunk, p  # free this chunk before the next one is moved
+            parts = [replica(chunk[i * k:(i + 1) * k].to(dev, torch.float32))
+                     for i, (replica, dev) in enumerate(replicas)]
+            p = torch.cat([torch.softmax(q.to(torch.float32), dim=-1).cpu() for q in parts])
+            probs.append(p[:n].numpy())
+            del chunk, parts, p  # free this chunk before the next one is moved
     return np.concatenate(probs) if probs else np.zeros((0,), np.float32)
 
 
 def classify_and_display(
     model, clips, video_names: List[str], class_names: List[str],
-    batch_size: int = 32, probs: Optional[np.ndarray] = None, device=None,
+    batch_size: int = 32, probs: Optional[np.ndarray] = None, device=None, mesh=None,
 ) -> List[dict]:
     """The reference's output contract; ``probs`` skips the forward for
     callers that already have probabilities."""
     results = []
     label_counter = Counter()
     if probs is None:
-        probs = classify_videos(model, clips, batch_size=batch_size, device=device)
+        probs = classify_videos(model, clips, batch_size=batch_size, device=device, mesh=mesh)
     for idx, name in enumerate(video_names):
         order = np.argsort(-probs[idx])
         sorted_labels = [class_names[i] for i in order]
@@ -296,10 +334,15 @@ def _load_with_device_sampling(videos_dir: str, sampling: str, seq_len: int, img
     return x, names
 
 
-def _visible_devices(dev: torch.device) -> int:
-    import torch
-
-    return torch.cuda.device_count() if dev.type == "cuda" else 1
+def serving_mesh(dev):
+    """A data mesh over every visible device of ``dev``'s type (``vct``'s
+    ``make_mesh(jax.devices(), model=1)``), or None where there is one."""
+    devices = visible_devices(dev)
+    if len(devices) < 2:
+        return None
+    mesh = make_mesh(devices, model=1)
+    print(f"Sharding inference over {mesh.size} devices")
+    return mesh
 
 
 def main(argv=None) -> int:
@@ -350,12 +393,9 @@ def main(argv=None) -> int:
         seq_len = art_T
         img_h, img_w = servable.input_shape[1], servable.input_shape[2]
         if args.mesh:
-            print("--mesh is ignored for .vctaot artifacts; serving an artifact over "
-                  "more than one card is not ported (ROADMAP Queue 1 item 8)")
+            print("--mesh is ignored for .vctaot artifacts; export with "
+                  "--data_parallel to serve an artifact across cards")
     else:
-        if args.mesh and _visible_devices(dev) > 1:
-            raise NotImplementedError("--mesh over more than one card is not ported to "
-                                      "vct_torch yet (ROADMAP Queue 1 item 8)")
         model, class_names, cfg = load_model(args.model, device=dev)
         sampling = args.sampling or cfg.data.sampling_method
         seq_len = args.sequence_length or cfg.data.sequence_length
@@ -381,8 +421,9 @@ def main(argv=None) -> int:
     if len(names) == 0:
         print("No videos found.")
         return 1
+    mesh = serving_mesh(dev) if args.mesh and servable is None else None
     results = classify_and_display(
-        model, clips, names, class_names, batch_size=args.batch_size, device=dev,
+        model, clips, names, class_names, batch_size=args.batch_size, device=dev, mesh=mesh,
         probs=servable.classify(clips) if servable is not None else None)
     if args.post:
         if cfg is not None:

@@ -19,10 +19,10 @@ bound), SAMPLING_METHOD, SEQUENCE_LENGTH, VIDEO_DIR, QUEUE_PORT, APP_STAGE
 and BACKEND_URL; ``device`` (default: the card) says where the model runs.
 ``python -m vct_torch.serve.worker`` runs it.
 
-Not ported: ``VCT_WORKER_MESH=1`` over more than one card (ROADMAP Queue 1
-item 8), which raises ``NotImplementedError`` (on one card it changes
-nothing, as in ``vct``). ``vct``'s persistent compile cache is XLA's and has
-no counterpart here.
+``VCT_WORKER_MESH=1`` serves a checkpoint across every visible card (one
+replica a card, ``deployment.classify_videos``'s mesh); on one card it
+changes nothing, as in ``vct``. ``vct``'s persistent compile cache is XLA's
+and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -82,13 +82,15 @@ class Worker:
                 self.cfg = cfg = dataclasses.replace(
                     cfg, sampling_method=self.servable.sampling_method)
         else:
-            if (os.environ.get("VCT_WORKER_MESH") == "1"
-                    and deployment._visible_devices(self.device) > 1):
-                raise NotImplementedError("VCT_WORKER_MESH over more than one card is not "
-                                          "ported to vct_torch yet (ROADMAP Queue 1 item 8)")
             self.model, self.class_names, self.model_cfg = load_model(
                 cfg.model_path, device=self.device)
         self.pull = QueuePull(port=cfg.queue_port)
+        self.mesh = None
+        if os.environ.get("VCT_WORKER_MESH") == "1":
+            devices = deployment.visible_devices(self.device)
+            if len(devices) > 1:
+                self.mesh = deployment.make_mesh(devices, model=1)
+                print(f"worker sharding inference over {self.mesh.size} devices")
 
     def callback(self, url: str) -> None:
         print(f"Processing message: {url}")
@@ -117,7 +119,7 @@ class Worker:
             print("No videos to classify.")
             return
         results = classify_and_display(
-            self.model, clips, names, self.class_names, device=self.device,
+            self.model, clips, names, self.class_names, device=self.device, mesh=self.mesh,
             probs=self.servable.classify(clips) if self.servable is not None else None)
         posted = post_results(results, self.cfg.backend_url)
         # Delete videos whose result the backend confirmed. Transient

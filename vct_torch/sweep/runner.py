@@ -1,4 +1,4 @@
-"""Sweep executor: the port of ``vct/sweep/runner.py`` on one card.
+"""Sweep executor: the port of ``vct/sweep/runner.py``.
 
 The reference's runner sed-patches ``all_config.py``, launches ``main.py`` as
 a subprocess, and regex-scrapes seven metrics from its stdout
@@ -19,6 +19,14 @@ and skipped (``runner.py:57-64``), the F1 keep threshold (``runner.py:67``:
 (``runner.py:69-75``), and a journaled store append after every improvement
 (``runner.py:82-96``).
 
+Under a process group (``torchrun``, ``vct_torch.parallel.multihost``)
+every rank runs the same sweep and each trial trains across the world's
+ranks (the trainer's mesh). The strategies draw from their own seeded
+generators and the trials' metrics are global, so every rank proposes the
+same points; the store, its journal, the checkpoints and the best-model
+directories are written by the primary alone, behind barriers. The
+subprocess mode runs one process a trial and is refused under a world.
+
 Not ported: ``vct``'s compiled-step cache between trials (``_trace_key``,
 ``_share_compiled_steps``). It reuses XLA's compiled train, eval and val
 steps across trials whose traces agree. The port compiles nothing per trial:
@@ -37,6 +45,7 @@ from typing import Dict, List, Optional, Tuple
 from vct_torch.core.config import Config
 from vct_torch.core.metrics_contract import RunMetrics, extract_metrics
 from vct_torch.device import resolve_device
+from vct_torch.parallel import multihost
 from vct_torch.sweep.store import SweepStore
 
 __all__ = ["SweepRunner"]
@@ -51,7 +60,12 @@ class SweepRunner:
         use_subprocess: bool = False,
         device=None,
     ):
-        self.device = resolve_device(device)
+        self.world = multihost.process_count() > 1
+        if self.world and use_subprocess:
+            raise ValueError("use_subprocess starts one process a trial; under a world of "
+                             "ranks the trials train in process, across the ranks")
+        # Under a world each rank trains on the device initialize gave it.
+        self.device = multihost.local_device() if self.world else resolve_device(device)
         self.base_cfg = base_cfg
         self.store = store or SweepStore(base_cfg.sweep.checkpoint_file)
         self._data = data  # optional preloaded (x, y, class_names)
@@ -66,7 +80,7 @@ class SweepRunner:
 
     def _train_inprocess(self, cfg: Config) -> RunMetrics:
         from vct_torch.data.batcher import train_test_split
-        from vct_torch.train.checkpoint import save_checkpoint
+        from vct_torch.train.checkpoint import gather_state_dict, save_checkpoint
         from vct_torch.train.engine import Trainer, compute_class_weights
 
         if cfg.data.stream and not cfg.data.synthetic and self._data is None:
@@ -94,7 +108,7 @@ class SweepRunner:
         state, run = trainer.fit(state, x_tr, y_tr, val=val)
         if cfg.train.save_model:
             save_checkpoint(
-                cfg.train.model_path, state.model.state_dict(), cfg, class_names
+                cfg.train.model_path, gather_state_dict(state), cfg, class_names
             )
         return trainer.evaluate(state, x_te, y_te, run=run)
 
@@ -155,7 +169,8 @@ class SweepRunner:
                 best_f1 = metrics.f1
                 best_model_filename = cfg.artifact_name("best_model")
                 best_path = os.path.join(sweep.best_model_dir, best_model_filename)
-                if cfg.train.save_model and os.path.exists(cfg.train.model_path):
+                if (cfg.train.save_model and os.path.exists(cfg.train.model_path)
+                        and multihost.is_primary()):
                     os.makedirs(sweep.best_model_dir, exist_ok=True)
                     if os.path.exists(best_path):
                         shutil.rmtree(best_path)
@@ -167,7 +182,9 @@ class SweepRunner:
                     "best_model_filename": best_model_filename,
                 }
                 self.best_results.append(entry)
-                self.store.append(entry)
+                if multihost.is_primary():
+                    self.store.append(entry)
+                multihost.barrier("sweep store")
             elif metrics.f1 > best_f1:
                 best_f1 = metrics.f1
         return best_f1, best_model_filename

@@ -7,6 +7,16 @@ at ``--data.dataset_path`` decoded into the configured cache by
 ``--device``), train with the configured loss, save the checkpoint and print
 the reference-compatible metric block. With ``--data.stream true`` the
 batches stream out of the cache (``vct_torch.train.stream``).
+
+Under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` /
+``MASTER_ADDR`` / ``MASTER_PORT`` in the environment) every process joins
+the world (``vct_torch.parallel.multihost.initialize``: rank ``r`` on
+``cuda:LOCAL_RANK`` over NCCL, or on the CPU over gloo with ``--device
+cpu``) and trains one rank of a (``--mesh.data_axis``, ``--mesh.model_axis``)
+mesh; only the primary prints and writes. Without ``torchrun`` it is one
+process on one device::
+
+    torchrun --nproc_per_node 4 -m vct_torch.train --data.synthetic true --mesh.model_axis 2
 """
 
 from __future__ import annotations
@@ -16,7 +26,8 @@ import sys
 from vct_torch.core.config import Config, load_config, parse_cli_overrides
 from vct_torch.data.batcher import train_test_split
 from vct_torch.data.synthetic import generate_dummy_data
-from vct_torch.train.checkpoint import save_checkpoint
+from vct_torch.parallel import multihost
+from vct_torch.train.checkpoint import gather_state_dict, save_checkpoint
 from vct_torch.train.engine import Trainer, compute_class_weights
 
 
@@ -34,7 +45,8 @@ def load_training_data(cfg: Config):
         )
     from vct_torch.data.ingest import load_or_build_dataset
 
-    return load_or_build_dataset(cfg)
+    # Every rank of a world reads the cache the primary builds.
+    return multihost.primary_first(load_or_build_dataset, cfg)
 
 
 def _pop_option(argv: list, name: str):
@@ -54,6 +66,19 @@ def main(argv=None) -> int:
     config_path = _pop_option(argv, "--config")
     device = _pop_option(argv, "--device")  # default: the card
     cfg = load_config(config_path, parse_cli_overrides(argv))
+    world = multihost._env_int("WORLD_SIZE", 1)
+    if world > 1:
+        multihost.initialize(device=device)
+        device = multihost.local_device()
+    try:
+        return _train(cfg, device)
+    finally:
+        if world > 1:
+            multihost.shutdown()
+
+
+def _train(cfg: Config, device) -> int:
+    say = print if multihost.is_primary() else (lambda *a, **k: None)
     if cfg.data.stream and not cfg.data.synthetic:
         from vct_torch.train.stream import stream_train_eval
 
@@ -64,12 +89,12 @@ def main(argv=None) -> int:
     x_train, x_test, y_train, y_test = train_test_split(
         x, y, cfg.data.val_fraction, cfg.data.split_seed
     )
-    print(f"Train: {x_train.shape}, Test: {x_test.shape}, classes: {class_names}")
+    say(f"Train: {x_train.shape}, Test: {x_test.shape}, classes: {class_names}")
 
     weights = None
     if cfg.train.weighted_loss:
         weights = compute_class_weights(y_train, cfg.model.num_classes, cfg.model.classif_mode)
-        print("class weights:", weights)
+        say("class weights:", weights)
 
     trainer = Trainer(cfg, class_names, class_weights=weights, device=device)
     state = trainer.init_state()
@@ -79,8 +104,9 @@ def main(argv=None) -> int:
     ) else None
     state, run = trainer.fit(state, x_train, y_train, val=val)
     if cfg.train.save_model:
-        path = save_checkpoint(cfg.train.model_path, state.model.state_dict(), cfg, class_names)
-        print(f"Model saved to {path}")
+        path = save_checkpoint(cfg.train.model_path, gather_state_dict(state), cfg,
+                               class_names)
+        say(f"Model saved to {path}")
     trainer.evaluate(state, x_test, y_test, run=run)
     return 0
 

@@ -23,6 +23,12 @@ crash between the two swaps resumes from the newer state one epoch early
 rather than pointing a manifest at a missing state. Loading checks every
 tensor: a missing one raises ``KeyError``, an extra one or a wrong shape
 ``ValueError``, a directory another framework wrote ``ValueError``.
+
+Across ranks (``vct_torch.parallel``; ``vct``'s ``checkpoint.py:39-90``):
+every rank calls the save functions and meets the same barriers, only the
+primary writes, and tensors that ranks hold in blocks (the model axis's
+shards and their Adam moments) are joined first, so the files do not depend
+on the mesh. Loading a train state onto a mesh cuts them into blocks again.
 """
 
 from __future__ import annotations
@@ -35,9 +41,13 @@ import torch
 from torch import nn
 
 from vct_torch.core.config import Config
+from vct_torch.parallel.mesh import MODEL_AXIS
+from vct_torch.parallel.multihost import barrier, is_primary
+from vct_torch.parallel.shard import full_tensor
 
-__all__ = ["FRAMEWORK", "load_checkpoint", "load_train_state", "load_weights",
-           "restore_train_state", "save_checkpoint", "save_train_state", "train_state_payload"]
+__all__ = ["FRAMEWORK", "gather_state_dict", "load_checkpoint", "load_train_state",
+           "load_weights", "restore_train_state", "save_checkpoint", "save_train_state",
+           "train_state_payload"]
 
 FRAMEWORK = "vct_torch"
 _MANIFEST = "manifest.json"
@@ -92,20 +102,32 @@ def load_weights(model: nn.Module, state_dict: Mapping[str, torch.Tensor],
     return model
 
 
+def gather_state_dict(state) -> Dict[str, torch.Tensor]:
+    """The model's state_dict of a train state with whole tensors: blocks
+    of a model axis joined (every rank of the mesh must call it)."""
+    specs = getattr(state, "specs", None) or {}
+    return {k: full_tensor(v, state.mesh, specs.get(k))
+            for k, v in state.model.state_dict().items()}
+
+
 def save_checkpoint(path: str, state_dict: Dict[str, torch.Tensor], cfg: Config,
                     class_names: List[str], metrics: Optional[dict] = None) -> str:
     """Save a model's state_dict and the manifest under ``path``; returns
-    the absolute path."""
+    the absolute path. Under a process group every rank calls it with the
+    whole tensors (``gather_state_dict``); the primary writes, and no rank
+    returns before the files are there."""
     path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
-    _atomic_save({k: v.detach().to("cpu") for k, v in state_dict.items()},
-                 os.path.join(path, _WEIGHTS))
-    _atomic_json({
-        "framework": FRAMEWORK,
-        "config": cfg.to_dict(),
-        "class_names": list(class_names),
-        "metrics": metrics or {},
-    }, os.path.join(path, _MANIFEST))
+    if is_primary():
+        os.makedirs(path, exist_ok=True)
+        _atomic_save({k: v.detach().to("cpu") for k, v in state_dict.items()},
+                     os.path.join(path, _WEIGHTS))
+        _atomic_json({
+            "framework": FRAMEWORK,
+            "config": cfg.to_dict(),
+            "class_names": list(class_names),
+            "metrics": metrics or {},
+        }, os.path.join(path, _MANIFEST))
+    barrier("checkpoint saved")
     return path
 
 
@@ -117,15 +139,32 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], Config, List[st
     return state_dict, Config.from_dict(manifest["config"]), manifest["class_names"], manifest
 
 
+def _optimizer_state(state) -> dict:
+    """The optimizer's state_dict with the sharded parameters' moments
+    joined from their blocks; a copy, the live state untouched."""
+    saved = state.optimizer.state_dict()
+    specs = getattr(state, "specs", None) or {}
+    if not specs:
+        return saved
+    moments = {}
+    for index, entry in saved["state"].items():
+        dim = specs.get(state.param_names[int(index)])
+        moments[index] = {
+            k: (full_tensor(v, state.mesh, dim)
+                if dim is not None and k != "step" and torch.is_tensor(v) else v)
+            for k, v in entry.items()}
+    return {**saved, "state": moments}
+
+
 def train_state_payload(state) -> dict:
     """What ``train_state.pt`` holds of a train state (a ``TrainState``:
     model, optimizer, step, dropout generator): the model's and the
-    optimizer's state_dicts, the step and the generator's state and device
-    type."""
+    optimizer's state_dicts with whole tensors, the step and the
+    generator's state and device type."""
     gen = state.generator
     return {
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+        "model": gather_state_dict(state),
+        "optimizer": _optimizer_state(state),
         "step": int(state.step),
         "generator": None if gen is None else {"device": gen.device.type,
                                                "state": gen.get_state()},
@@ -137,8 +176,19 @@ def restore_train_state(saved: dict, state) -> None:
     model tensor checked (``load_weights``). A generator saved on another
     device type cannot continue there, and a state converted from ``vct``
     saved none: either warns and keeps the fresh one."""
-    load_weights(state.model, saved["model"], "train state")
-    state.optimizer.load_state_dict(saved["optimizer"])
+    specs = getattr(state, "specs", None) or {}
+    model_sd, opt_sd = saved["model"], saved["optimizer"]
+    if specs:
+        # Whole tensors in the file: this rank keeps its blocks.
+        mesh = state.mesh
+        model_sd = {k: (mesh.block(v, specs[k], MODEL_AXIS).clone() if k in specs else v)
+                    for k, v in model_sd.items()}
+        from vct_torch.parallel.shard import shard_state_like_params
+
+        opt_sd = {**opt_sd, "state": {i: dict(m) for i, m in opt_sd["state"].items()}}
+        shard_state_like_params(opt_sd["state"], mesh, specs, state.param_names)
+    load_weights(state.model, model_sd, "train state")
+    state.optimizer.load_state_dict(opt_sd)
     state.step = int(saved["step"])
     gen = saved["generator"]
     if state.generator is not None and gen is None:
@@ -157,13 +207,21 @@ def save_train_state(path: str, state, cfg: Config, class_names: List[str], epoc
     """Save the full train state (``vct_torch.train.engine.TrainState``)
     after ``epoch`` completed epochs; ``extra`` is a small JSON-safe dict
     carried in the manifest (the early-stop and plateau counters, the epoch
-    history), so a resumed run replays them."""
+    history), so a resumed run replays them. For a state on a rank mesh
+    every rank calls it (the blocks join) and the primary writes; a state on
+    one process's device writes alone, process group or not."""
     path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
-    _atomic_save(train_state_payload(state), os.path.join(path, _TRAIN_STATE))
-    _atomic_json({"framework": FRAMEWORK, "epoch": epoch, "config": cfg.to_dict(),
-                  "class_names": list(class_names), "extra": extra or {}},
-                 os.path.join(path, _TRAIN_MANIFEST))
+    payload = train_state_payload(state)
+    mesh = getattr(state, "mesh", None)
+    ranks = mesh.distributed if mesh is not None else True  # a state off any mesh: the world
+    if is_primary() or not ranks:
+        os.makedirs(path, exist_ok=True)
+        _atomic_save(payload, os.path.join(path, _TRAIN_STATE))
+        _atomic_json({"framework": FRAMEWORK, "epoch": epoch, "config": cfg.to_dict(),
+                      "class_names": list(class_names), "extra": extra or {}},
+                     os.path.join(path, _TRAIN_MANIFEST))
+    if ranks:
+        barrier("train state saved")
     return path
 
 

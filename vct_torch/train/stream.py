@@ -23,10 +23,11 @@ def stream_train_eval(cfg: Config, device=None) -> Tuple[object, RunMetrics]:
     (default: the card). Returns (final TrainState, eval RunMetrics)."""
     from vct_torch.data.ingest import ensure_cache
     from vct_torch.data.loaders import cache_num_examples, open_cache_loader, split_indices
-    from vct_torch.train.checkpoint import save_checkpoint
+    from vct_torch.train.checkpoint import gather_state_dict, save_checkpoint
+    from vct_torch.parallel.multihost import primary_first
     from vct_torch.train.engine import Trainer, compute_class_weights
 
-    ensure_cache(cfg)
+    primary_first(ensure_cache, cfg)  # every rank of a world reads one cache
     class_names: List[str] = [
         str(c) for c in np.load(cfg.data.classes_file, allow_pickle=True)
     ]
@@ -59,7 +60,7 @@ def stream_train_eval(cfg: Config, device=None) -> Tuple[object, RunMetrics]:
         ) else None
         state, run = trainer.fit(state, train_loader, val=val)
         if cfg.train.save_model:
-            path = save_checkpoint(cfg.train.model_path, state.model.state_dict(), cfg,
+            path = save_checkpoint(cfg.train.model_path, gather_state_dict(state), cfg,
                                    class_names)
             print(f"Model saved to {path}")
         metrics = trainer.evaluate(state, test_loader, run=run)
