@@ -313,7 +313,24 @@ line):
     forward, K1 and K3 counted a replica; (d) the multichip dryrun over NCCL
     when ``torch.cuda.device_count() > 1``, else a line saying it was not
     run; the phase's seconds;
-21. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
+21. finetune and fold (``_finetune_path``) — the deployed configuration at
+    full width (resnet50 in bf16, 3 Mamba blocks, T=60, 80x80, B=32 seeded
+    uint8 clips, dropout 0.25, Adam at lr 1e-4): (a) raw uint8 clips, cast
+    to the compute dtype, into a model whose stem conv holds the 1/255
+    (``fold_input_scale_into_stem``) against x / 255 into the plain one on
+    the same clips, the logits' largest difference within 1e-1 in bf16 and
+    1e-4 in f32 (TF32 off), both bf16 forwards timed in turns; (b) 3 frozen
+    train steps and 3 ``model.finetune`` steps with ``model.remat_backbone``
+    off and on, in turns, under cudnn's deterministic algorithms: each
+    step's ms, peak ``max_memory_allocated`` and its rise above the step's
+    start; the two finetune runs' losses bit-equal, every parameter within
+    1e-5 of its tensor's largest change, the backbone called once a step
+    without remat and twice with it (a forward pre-hook), K3 9 forward and
+    9 backward in each of the three runs; (c) two steps with
+    ``model.freeze_until`` conv1 to layer3: after each, only layer4's
+    backbone parameters have moved; each step's ms (the first a new
+    trainer's); the phase's seconds;
+22. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
     launches, error, time, plain time, bound (K3 forward and backward also at
     the VideoMamba step, B=32 T=16 D=2048 N=16, ``"config": "videomamba"``,
     launches from phase 13) and, for K2/K5, the design,
@@ -326,7 +343,10 @@ line):
     at the SFUs' rate) and ``launch_ms`` (the launch without the wrapper's
     checks, by events), and a line of extra timings at the other shapes,
     with the LSTM stack's backward at T = 130 beside cuDNN's
-    (``lstm_stack_bwd_T130``), K3's backward at VideoMamba's shape
+    (``lstm_stack_bwd_T130``) and above H = 64, at the two widths of the
+    forward's "columns" rows (``lstm_stack_bwd_H65_L4``,
+    ``lstm_stack_bwd_H256_L2``, with cuDNN's backward), K3's backward at
+    VideoMamba's shape
     (``selective_scan_bwd_videomamba``), K3's device time under S = 1 and 2, each
     with the plan's 128-thread blocks and 64-step chunks, 64- or 256-thread
     blocks, or 32-step chunks, at five shapes (``selective_scan_plans``), and K4's device time under
@@ -356,8 +376,9 @@ line):
     package at ROOT, an older checkout's too, for a comparison of parent and
     change in one call; ``python3 chip_smoke.py --bwd-timing ROOT`` prints only the backward
     entry points' times (``bwd_timings``: K3's at the deployed step and
-    VideoMamba's shape with its launches a call, K2/K5's) for the package at
-    ROOT, an older checkout's too.
+    VideoMamba's shape with its launches a call, K2/K5's, and K2's above
+    H = 64 with cuDNN's backward beside it) for the package at ROOT, an
+    older checkout's too.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -929,9 +950,13 @@ VIDEOMAMBA_SCAN = (2, 256, 2048, 16)
 # K3 in the VideoMamba model's bench and train steps: B=32, T=16, d_inner
 # 2048, n_state 16.
 VIDEOMAMBA_STEP = (32, 16, 2048, 16)
+# K2's backward above H = 64 ("columns") at the two widths the forward is
+# timed at (the forward's H=256 row takes input 256 = H, the width cuDNN's
+# backward is built with).
+BWD_COLUMNS_SHAPES = [(32, 40, 65, 4), (2, 16, 256, 2)]
 BWD_RNN_SHAPES = [(32, 40, 56, 4), (4, 40, 56, 4), (32, 60, 32, 3), (3, 7, 5, 3), (2, 20, 17, 3),
                   (2, 16, 1, 2), (2, 16, 64, 4), (2, BWD_LONG_T, 17, 3), (2, 16, 65, 2),
-                  (2, 16, 256, 2)]
+                  *BWD_COLUMNS_SHAPES]
 # The backward entry points and the vct custom_vjp backward each replaces
 # (plain JAX there, no Pallas kernel).
 BWD_KERNELS = {
@@ -3119,6 +3144,27 @@ def _serve_urls(torch, root: Path, model_path: str, urls: list, video_dir: Path,
     return w, {r["url"]: r for r in store.all()}, replies, load_s, log.getvalue()
 
 
+def _worker_messages(records: list, counters) -> list:
+    """Phase 16's hold on each message's launches: K3 ``rnn_layer`` times a
+    forward, ceil(N/WORKER_BATCH) forwards for N videos, nothing else. A URL
+    asked for while the worker still posts an earlier message's rows is
+    queued again; its message finds the file classified, deletes it and
+    classifies nothing: no forward and no launch. Returns each message's
+    seconds, videos and launches."""
+    messages = []
+    for rec in records:
+        n = len(rec.get("names", ()))
+        expect = dict.fromkeys(counters, 0)
+        expect["selective_scan"] = DEPLOYED["rnn_layer"] * -(-n // WORKER_BATCH)
+        if rec["launches"] != expect:
+            raise AssertionError(f"phase 16: message {rec['url']}: launches {rec['launches']} "
+                                 f"!= {expect}")
+        messages.append({k: rec.get(k) for k in ("download_s", "check_s", "decode_select_s",
+                                                 "forward_s", "post_s", "callback_s")}
+                        | {"videos": n, "launches": _nonzero(rec["launches"])})
+    return messages
+
+
 def _worker_path(torch, gpu, root: Path, decodes: bool) -> None:
     """Phase 16: phase 15's served files behind URLs, served through
     ``vct_torch.serve.backend`` (a ``ResultStore`` under ``root``, an
@@ -3205,14 +3251,10 @@ def _worker_path(torch, gpu, root: Path, decodes: bool) -> None:
     # on clips sampled in process, grouped as the worker grouped them
     ref_clips, ref_names = load_dataset_inference(str(src), "sad", T, H, W, decode_workers=1)
     ref = dict(zip(ref_names, ref_clips))
-    err, messages = 0.0, []
+    messages, err = _worker_messages(records, counters), 0.0
     for rec in records:
-        n = len(rec["names"])
-        expect = dict.fromkeys(counters, 0)
-        expect["selective_scan"] = DEPLOYED["rnn_layer"] * -(-n // WORKER_BATCH)
-        if rec["launches"] != expect:
-            raise AssertionError(f"phase 16: message {rec['url']}: launches {rec['launches']} "
-                                 f"!= {expect}")
+        if not rec.get("names"):
+            continue
         clips = np.stack([ref[name] for name in rec["names"]])
         if not np.array_equal(clips, rec["clips"]):
             raise AssertionError(f"phase 16: the worker's clips of {rec['names']} differ from "
@@ -3224,9 +3266,6 @@ def _worker_path(torch, gpu, root: Path, decodes: bool) -> None:
             if row["labels"] != [w.class_names[i] for i in order]:
                 raise AssertionError(f"phase 16: labels of {name} differ from classify_videos")
             err = max(err, float(np.abs(np.asarray(row["scores"]) - p[order]).max()))
-        messages.append({k: rec.get(k) for k in ("download_s", "check_s", "decode_select_s",
-                                                 "forward_s", "post_s", "callback_s")}
-                        | {"videos": n, "launches": _nonzero(rec["launches"])})
     if not err <= WORKER_TOL:
         raise AssertionError(f"phase 16: stored scores differ from classify_videos by {err}")
 
@@ -3242,10 +3281,13 @@ def _worker_path(torch, gpu, root: Path, decodes: bool) -> None:
     e2e = [r[2] for r in replies]
     for url, (_, body, secs) in zip(urls, replies):
         rec = next((m for m, r in zip(messages, records) if r["url"] == url), None)
-        how = (f"a message of {rec['videos']} videos: download {rec['download_s']:.4f}, check "
-               f"{rec['check_s']:.4f}, decode+select {rec['decode_select_s']:.4f}, forward "
-               f"{rec['forward_s']:.4f}, POST {rec['post_s']:.4f}, callback "
-               f"{rec['callback_s']:.4f} s; launches {rec['launches']}" if rec
+        secs_of = {k: "-" if rec is None or rec[k] is None else f"{rec[k]:.4f}"
+                   for k in ("download_s", "check_s", "decode_select_s", "forward_s", "post_s",
+                             "callback_s")}
+        how = (f"a message of {rec['videos']} videos: download {secs_of['download_s']}, check "
+               f"{secs_of['check_s']}, decode+select {secs_of['decode_select_s']}, forward "
+               f"{secs_of['forward_s']}, POST {secs_of['post_s']}, callback "
+               f"{secs_of['callback_s']} s; launches {rec['launches']}" if rec
                else "from the store")
         print(f"worker: {Path(_video_name(url, suffix)).name} -> {body['labels'][0]} in "
               f"{secs:.4f} s end to end, {how}")
@@ -4724,6 +4766,241 @@ def _mesh_stepper(torch, trainer, x, y, grads: bool = False):
            "step_ms": ms, "largest_change": change, "first_grads": first_grads}
 
 
+# Phase 21, finetune and fold: the deployed configuration at full width
+# (DEPLOYED, resnet50 in bf16, 3 Mamba blocks, T=60, 80x80, B=32 seeded
+# uint8 clips, dropout 0.25, Adam at lr 1e-4) with its backbone trained.
+FT_STEPS = 3
+FT_BATCH = 32
+# The folded stem against x / 255, logits' largest difference. In bf16 one
+# path rounds the stem's inputs and the other its weights, and the two
+# roundings run through the whole backbone: the difference is of the order
+# of the plain model's own bf16 error against f32, measured in the same run,
+# and held at FT_FOLD_BF16_OF_PLAIN times it; far above a batch size's
+# (6.48e-4 to 8.68e-4 at B=1 against B=32, PERF.md §6; cited beside it, not
+# measured here). In f32 with TF32 off only the fold's own rounding is left.
+FT_FOLD_BF16_OF_PLAIN = 3.0
+FT_FOLD_TOL_F32 = 1e-4
+# remat on against off, every parameter after FT_STEPS: of each tensor's
+# largest change over the steps.
+FT_PARAM_TOL = 1e-5
+FT_FREEZE = "conv1,bn1,layer1,layer2,layer3"
+
+
+def _ft_cfg(**model):
+    from vct_torch.core.config import Config
+
+    return Config().replace(**{
+        "data.sequence_length": str(T), "data.img_height": str(H), "data.img_width": str(W),
+        "train.batch_size": str(FT_BATCH), "model.compute_dtype": "bfloat16",
+        **{f"model.{k}": str(v) for k, v in {**DEPLOYED, **model}.items()}})
+
+
+def _ft_stepper(torch, trainer, x, y):
+    """A generator: one train step on (x, y) a ``next``, FT_STEPS of them,
+    then the run's results: each step's loss, milliseconds (host clock
+    around a synchronized step), peak ``max_memory_allocated`` (after
+    ``reset_peak_memory_stats``) and that peak above the memory allocated
+    when the step began, the backbone's forward calls (a pre-hook: a
+    rematerialising backward calls it again, and stops its recompute before
+    the forward returns), K3's launches, and every trained parameter before
+    and after the steps."""
+    from vct_torch.ops import selective_scan as k3
+
+    state = trainer.init_state()
+    calls = []
+    hook = trainer.model.cnn_backbone.register_forward_pre_hook(lambda *_: calls.append(1))
+    start = {n: p.detach().float().cpu().clone() for n, p in
+             zip(trainer._trained_names, trainer._trained)}
+    mask = np.ones(len(x), np.float32)
+    out = {"losses": [], "step_ms": [], "peak_bytes": [], "peak_rise_bytes": [],
+           "backbone_calls": [], "launches": {"selective_scan": 0, "selective_scan_bwd": 0}}
+    for _ in range(FT_STEPS):
+        batch = trainer._put_batch(x, y, mask)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = (k3.selective_scan.launches, k3.selective_scan_bwd.launches, len(calls))
+        t0 = time.perf_counter()
+        loss, _, _ = trainer._train_step(state, *batch)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        out["peak_bytes"].append(peak)
+        out["peak_rise_bytes"].append(peak - base)
+        out["launches"]["selective_scan"] += k3.selective_scan.launches - before[0]
+        out["launches"]["selective_scan_bwd"] += k3.selective_scan_bwd.launches - before[1]
+        out["backbone_calls"].append(len(calls) - before[2])
+        out["losses"].append(float(loss))
+        yield None
+    hook.remove()
+    out["start"] = start
+    out["params"] = {n: p.detach().float().cpu() for n, p in
+                     zip(trainer._trained_names, trainer._trained)}
+    yield out
+
+
+def _fold_limit(dtype: str, plain_bf16_err: float) -> float:
+    """The fold's limit: FT_FOLD_TOL_F32 in f32; in bf16 FT_FOLD_BF16_OF_PLAIN
+    times the plain model's own bf16 error against its f32 logits."""
+    return FT_FOLD_TOL_F32 if dtype == "float32" else FT_FOLD_BF16_OF_PLAIN * plain_bf16_err
+
+
+def _fold_hold(label: str, diff: float, limit: float) -> None:
+    """The folded stem's logits against x / 255's within ``limit``."""
+    if not diff <= limit:
+        raise AssertionError(f"{label}: folded logits {diff} from x / 255's (limit {limit})")
+
+
+def _finetune_hold(off: dict, on: dict, want_k3: dict) -> dict:
+    """``model.remat_backbone`` on against off, FT_STEPS finetune steps
+    each: the losses bit-equal, the backbone called once a step without
+    remat and twice with it (the recompute), K3's launches ``want_k3`` in
+    each run, and every parameter after the steps within FT_PARAM_TOL of
+    its tensor's largest change in the run without remat. Returns the
+    largest difference beside its limit."""
+    if on["losses"] != off["losses"]:
+        raise AssertionError(f"remat losses {on['losses']} != {off['losses']} without it")
+    if off["backbone_calls"] != [1] * FT_STEPS or on["backbone_calls"] != [2] * FT_STEPS:
+        raise AssertionError(f"backbone calls a step: {off['backbone_calls']} without remat, "
+                             f"{on['backbone_calls']} with it (want 1 and 2: the recompute)")
+    for label, run in (("without remat", off), ("with remat", on)):
+        if run["launches"] != want_k3:
+            raise AssertionError(f"{label}: K3 launches {run['launches']} != {want_k3}")
+    worst, worst_ratio, largest = 0.0, 0.0, 0.0
+    for name, p in off["params"].items():
+        change = float((p - off["start"][name]).abs().max())
+        err = float((on["params"][name] - p).abs().max())
+        if err > FT_PARAM_TOL * change:
+            raise AssertionError(f"remat: {name} differs by {err} after {FT_STEPS} steps "
+                                 f"(limit {FT_PARAM_TOL} x its largest change {change})")
+        worst, largest = max(worst, err), max(largest, change)
+        worst_ratio = max(worst_ratio, err / change if change else 0.0)
+    return {"max_abs_param_diff": worst, "max_diff_over_change": worst_ratio,
+            "largest_change": largest, "limit_of_change": FT_PARAM_TOL}
+
+
+def _freeze_hold(moved: dict) -> list:
+    """After a ``freeze_until`` step: only layer4's backbone parameters
+    moved, and some did. ``moved``: {parameter name: moved}. Returns the
+    backbone parameters that moved."""
+    backbone = [n for n, m in moved.items() if m and n.startswith("cnn_backbone.")]
+    wrong = [n for n in backbone if not n.startswith("cnn_backbone.layer4")]
+    if wrong or not backbone:
+        raise AssertionError(f"freeze_until {FT_FREEZE!r}: moved {wrong or 'no layer4 parameter'}")
+    return backbone
+
+
+def _finetune_path(torch, gpu) -> None:
+    """Phase 21: (a) the stem fold: raw uint8 clips cast to the compute
+    dtype into a model whose stem holds the 1/255, against x / 255 into the
+    plain one, in bf16 and in f32 (TF32 off), both forwards timed in turns;
+    (b) FT_STEPS frozen steps and ``finetune`` steps with ``remat_backbone``
+    off and on, in turns, under cudnn's deterministic algorithms;
+    (c) two steps with ``freeze_until``, held after each."""
+    import copy
+
+    from vct_torch.core.config import ModelConfig
+    from vct_torch.models import build_model
+    from vct_torch.models.backbones.port import fold_input_scale_into_stem
+    from vct_torch.train.engine import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(210)
+    x = rng.randint(0, 256, (FT_BATCH, T, H, W, 3), dtype=np.uint8)
+    xd = torch.from_numpy(x).cuda()
+    out = {}
+
+    # (a) the fold
+    fold, plain_f32 = {}, None
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(ModelConfig(**DEPLOYED, compute_dtype=dtype), T, seed=0)
+        folded = copy.deepcopy(model)
+        folded.cnn_backbone = fold_input_scale_into_stem(model.cnn_backbone, "resnet50")
+        plain_fn = lambda: model(xd.float() / 255.0)  # noqa: E731
+        fold_fn = lambda: folded(xd)  # noqa: E731
+        with torch.inference_mode():
+            plain = plain_fn()
+            diff = float((fold_fn() - plain).abs().max())
+            row = {"max_abs_logit_diff": diff, "max_abs_logit": float(plain.abs().max())}
+            if plain_f32 is None:
+                plain_f32 = plain.float()
+                row["limit"] = _fold_limit(dtype, 0.0)
+            else:  # bf16: the plain model's own error, then both forwards in turns
+                row["plain_bf16_vs_f32"] = float((plain.float() - plain_f32).abs().max())
+                row["limit"] = _fold_limit(dtype, row["plain_bf16_vs_f32"])
+                times = {"plain_ms": [], "fold_ms": []}  # plain, fold, fold, plain
+                for key in ("plain_ms", "fold_ms", "fold_ms", "plain_ms"):
+                    times[key].append(_events_ms(torch, plain_fn if key == "plain_ms"
+                                                 else fold_fn, 5, warmup=1))
+                row.update(times)
+        _fold_hold(f"fold {dtype}", diff, row["limit"])
+        fold[dtype] = row
+        del model, folded
+        torch.cuda.empty_cache()
+    out["fold"] = fold
+    cited = {"bf16_batch_size_diff": [6.48e-4, 8.68e-4], "source": "PERF.md §6, B=1 against B=32"}
+    print(json.dumps({"finetune_fold": fold, "cited_not_measured": cited, "gpu": gpu}), flush=True)
+
+    # (b) the frozen step, finetune with remat off and on, in turns
+    n_classes = _ft_cfg().model.num_classes
+    y = rng.randint(0, n_classes, FT_BATCH).astype(np.int64)
+    names = [f"class_{i}" for i in range(n_classes)]
+    want_k3 = {"selective_scan": FT_STEPS * DEPLOYED["rnn_layer"],
+               "selective_scan_bwd": FT_STEPS * DEPLOYED["rnn_layer"]}
+    cfgs = {"frozen": _ft_cfg(), "finetune": _ft_cfg(finetune="true"),
+            "finetune_remat": _ft_cfg(finetune="true", remat_backbone="true")}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        gens = {k: _ft_stepper(torch, Trainer(cfg, names), x, y) for k, cfg in cfgs.items()}
+        for _ in range(FT_STEPS):
+            for g in gens.values():
+                next(g)
+        runs = {k: next(g) for k, g in gens.items()}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del gens
+    torch.cuda.empty_cache()
+    if runs["frozen"]["launches"] != want_k3:
+        raise AssertionError(f"frozen: K3 launches {runs['frozen']['launches']} != {want_k3}")
+    held = _finetune_hold(runs["finetune"], runs["finetune_remat"], want_k3)
+    for key, run in runs.items():
+        out[key] = {k: run[k] for k in ("losses", "step_ms", "peak_bytes", "peak_rise_bytes",
+                                        "backbone_calls", "launches")}
+    out["finetune_remat"].update(held)
+    print(json.dumps({"finetune_steps": {k: out[k] for k in ("frozen", "finetune",
+                                                             "finetune_remat")},
+                      "gpu": gpu}), flush=True)
+
+    # (c) freeze_until: only layer4 of the backbone moves, held after each of
+    # two steps (a new trainer's first step carries its warm-up)
+    trainer = Trainer(_ft_cfg(finetune="true", freeze_until=FT_FREEZE), names)
+    before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    state = trainer.init_state()
+    batch = trainer._put_batch(x, y, np.ones(FT_BATCH, np.float32))
+    step_ms, peaks = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer._train_step(state, *batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated())
+        moved = {n: not torch.equal(p, before[n]) for n, p in trainer.model.named_parameters()}
+        backbone = _freeze_hold(moved)
+    out["freeze_until"] = {"prefixes": FT_FREEZE, "step_ms": step_ms, "peak_bytes": peaks,
+                           "backbone_params_moved": len(backbone),
+                           "backbone_params": sum(n.startswith("cnn_backbone.") for n in moved)}
+    del trainer, state, before
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"finetune_freeze_until": out["freeze_until"], "gpu": gpu}), flush=True)
+    print(f"finetune phase: {out['seconds']:.1f} s ({gpu})")
+
+
 def _bwd_timing(torch, gen, name, dims) -> dict:
     """One backward entry point at the main path's shape: time by events and
     from a CUDA graph, autograd through the plain version (its forward
@@ -5058,6 +5335,9 @@ def _kernel_timings(torch, gen, launches, errs, gpu, vm_launches):
                                           in_size=256),
         "lstm_stack_bwd_T130": _bwd_timing(torch, gen, "lstm_stack_bwd",
                                            (TRAIN_BATCH, BWD_LONG_T, 56, 4)),
+        **{f"lstm_stack_bwd_H{dims[2]}_L{dims[3]}": _bwd_timing(torch, gen, "lstm_stack_bwd",
+                                                                 dims)
+           for dims in BWD_COLUMNS_SHAPES},
         "selective_scan_bwd_videomamba": _bwd_timing(torch, gen, "selective_scan_bwd",
                                                      VIDEOMAMBA_SCAN),
     }, "gpu": gpu}
@@ -5081,9 +5361,11 @@ def bwd_timings(torch, root: Path) -> dict:
     and from a CUDA graph, for the ``vct_torch`` package at ``root``: this
     checkout's or an older one's. K3's at the deployed step and at
     VideoMamba's shape, with the device launches a call (``torch.profiler``);
-    K2/K5's at the bench stack (K5 its first layer), and the LSTM stack's at
-    T = BWD_LONG_T (three staged chunks). Uses only the entry points and
-    K2's forward ``_launch``."""
+    K2/K5's at the bench stack (K5 its first layer), the LSTM stack's at
+    T = BWD_LONG_T (three staged chunks), and the LSTM stack's above H = 64
+    (BWD_COLUMNS_SHAPES, the "columns" design) as ``_bwd_timing`` gives it,
+    with cuDNN's backward beside it. Uses only the entry points, K2's
+    forward ``_launch``, ``bwd_design`` and ``stack_bwd_ref``."""
     sys.path.insert(0, str(root))
     from vct_torch.ops import lstm as ops
     from vct_torch.ops import selective_scan as k3
@@ -5114,6 +5396,9 @@ def bwd_timings(torch, root: Path) -> dict:
             fn = lambda: getattr(ops, name)(*args, y, gy)  # noqa: E731
         rows[name if T_ == T_UCF50 else f"{name}_T{T_}"] = {
             "ms": _events_ms(torch, fn, 20), "device_ms": _graph_ms(torch, fn, 20)}
+    for dims in BWD_COLUMNS_SHAPES:  # with cuDNN's backward beside it
+        rows[f"lstm_stack_bwd_H{dims[2]}_L{dims[3]}"] = _bwd_timing(torch, gen, "lstm_stack_bwd",
+                                                                     dims)
     return {"bwd_timings": rows, "root": str(root), "gpu": _gpu_line()}
 
 
@@ -5248,6 +5533,7 @@ def main(argv: list[str]) -> int:
         _aot_path(torch, gpu, Path(tmp))
         _sweep_path(torch, gpu, Path(tmp) / "sweep", here)
         _mesh_path(torch, gpu, Path(tmp), here)
+    _finetune_path(torch, gpu)
     kernels = _kernel_timings(torch, gen, launches, errs, gpu, zoo["served"])
     kernels += _bwd_rows(torch, gen, train_launches, bwd_errs, zoo["trained"])
     print(json.dumps({"kernels": kernels, "gpu": gpu}))

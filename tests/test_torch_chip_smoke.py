@@ -6,7 +6,7 @@ URL-to-file mapping, local downloader and backend/queue/worker harness,
 the caption files phase's
 videos, annotations, corrupt files and comparisons, and the AOT phase's
 launch rule, eager forward, refusal check and no-zoo list, and the sweep
-phase's trial guard."""
+phase's trial guard, and the finetune phase's holds."""
 
 from __future__ import annotations
 
@@ -481,6 +481,26 @@ def test_local_downloader_copies_the_url_s_file(tmp_path):
         download("https://www.tiktok.com/@user/video/3", str(dst))
 
 
+@pytest.mark.parametrize("idle_launches,ok", [(0, True), (3, False)], ids=["idle", "launched"])
+def test_worker_phase_holds_a_message_that_classifies_nothing_to_no_launch(idle_launches, ok):
+    """Phase 16: a message that forwards 4 videos launches K3 once a block
+    (3); a message whose file the store already holds classifies nothing
+    (no forward, no ``names``) and must launch nothing."""
+    names = ["pair_scores", "selective_scan"]
+    busy = {"url": "u0", "names": ["a", "b", "c", "d"], "forward_s": 0.01,
+            "launches": {"pair_scores": 0, "selective_scan": 3}}
+    idle = {"url": "u3", "check_s": 0.001,
+            "launches": {"pair_scores": 0, "selective_scan": idle_launches}}
+    if not ok:
+        with pytest.raises(AssertionError, match="message u3: launches"):
+            chip_smoke._worker_messages([busy, idle], names)
+        return
+    got = chip_smoke._worker_messages([busy, idle], names)
+    assert [m["videos"] for m in got] == [4, 0]
+    assert got[0]["launches"] == {"selective_scan": 3} and got[1]["launches"] == {}
+    assert got[1]["forward_s"] is None and got[1]["check_s"] == 0.001
+
+
 def test_serve_urls_runs_the_worker_flow_and_returns_the_stored_rows(tmp_path, monkeypatch):
     """Phase 16's harness, which phase 18 shares, on the CPU: a tiny
     checkpoint behind the backend, the queue and a worker in threads; every
@@ -706,3 +726,93 @@ def test_sweep_phase_holds_memory_flat_and_every_trial_to_a_launch(trials, error
     else:
         with pytest.raises(AssertionError, match=error):
             chip_smoke._sweep_hold_trials("grid", trials)
+
+
+@pytest.mark.parametrize("dtype,diff,ok", [
+    ("bfloat16", 0.02, True), ("bfloat16", 0.0417, True), ("bfloat16", 0.05, False),
+    ("bfloat16", float("nan"), False), ("float32", 1e-4, True), ("float32", 2e-4, False),
+], ids=["in", "at", "over", "nan", "f32_at", "f32_over"])
+def test_finetune_phase_fails_a_fold_beyond_its_limit(dtype, diff, ok):
+    """The bf16 limit is FT_FOLD_BF16_OF_PLAIN times the plain model's own
+    bf16 error (0.0139 here), the f32 one FT_FOLD_TOL_F32."""
+    limit = chip_smoke._fold_limit(dtype, 0.0139)
+    assert limit == (1e-4 if dtype == "float32" else 3.0 * 0.0139)
+    if ok:
+        chip_smoke._fold_hold(f"fold {dtype}", diff, limit)
+    else:
+        with pytest.raises(AssertionError, match=f"fold {dtype}: folded logits"):
+            chip_smoke._fold_hold(f"fold {dtype}", diff, limit)
+
+
+def _f64(*values):
+    return torch.tensor(values, dtype=torch.float64)
+
+
+def _ft_runs():
+    """Phase 21's remat pair as ``_ft_stepper`` returns it: 3 steps, the
+    parameter moved by 1e-3 at most, K3 9 forward and 9 backward."""
+    steps, k3 = chip_smoke.FT_STEPS, {"selective_scan": 9, "selective_scan_bwd": 9}
+    start = {"w": _f64(0.5, -2.0, 0.0), "d": _f64(0.0, 0.0)}
+    off = {"losses": [1.5, 1.25, 1.0], "backbone_calls": [1] * steps, "launches": dict(k3),
+           "start": start, "params": {"w": start["w"] + _f64(1e-3, -5e-4, 0.0),
+                                      "d": start["d"].clone()}}
+    on = {**off, "backbone_calls": [2] * steps, "launches": dict(k3),
+          "params": {k: v.clone() for k, v in off["params"].items()}}
+    return off, on, k3
+
+
+@pytest.mark.parametrize("case,error", [
+    ("equal", None),
+    ("within", None),
+    ("no_recompute", "backbone calls a step"),
+    ("loss", "remat losses"),
+    ("param", "remat: w differs"),
+    ("moved_unchanged", "remat: d differs"),
+    ("launches", "with remat: K3 launches"),
+])
+def test_finetune_phase_holds_remat_against_finetune(case, error):
+    """Phase 21 (b): the losses bit-equal, the backbone twice a step with
+    remat (once without), K3's launches in each run, every parameter within
+    1e-5 of its tensor's largest change (a tensor that did not move must
+    stay bit-equal)."""
+    off, on, k3 = _ft_runs()
+    if case == "within":
+        on["params"]["w"] = on["params"]["w"] + _f64(0.0, 0.0, 9e-9)
+    elif case == "no_recompute":
+        on["backbone_calls"] = [1, 1, 1]
+    elif case == "loss":
+        on["losses"] = [1.5, 1.25, 1.0000001]
+    elif case == "param":
+        on["params"]["w"] = on["params"]["w"] + _f64(0.0, 0.0, 1.1e-8)
+    elif case == "moved_unchanged":
+        on["params"]["d"] = _f64(0.0, 1e-12)
+    elif case == "launches":
+        on["launches"] = {"selective_scan": 9, "selective_scan_bwd": 6}
+    if error is None:
+        out = chip_smoke._finetune_hold(off, on, k3)
+        assert out["largest_change"] == pytest.approx(1e-3, rel=1e-9)
+        assert out["limit_of_change"] == chip_smoke.FT_PARAM_TOL
+        assert out["max_abs_param_diff"] == (0.0 if case == "equal" else pytest.approx(9e-9))
+    else:
+        with pytest.raises(AssertionError, match=error):
+            chip_smoke._finetune_hold(off, on, k3)
+
+
+@pytest.mark.parametrize("moved,error", [
+    (["cnn_backbone.layer4_0.conv1.weight", "adapt.adapt1.weight"], None),
+    (["cnn_backbone.layer4_2.bn3.bias", "cnn_backbone.layer3_5.conv3.weight"], "layer3_5"),
+    (["cnn_backbone.conv1.weight"], "conv1"),
+    (["adapt.adapt1.weight"], "no layer4 parameter"),
+], ids=["layer4", "layer3_moved", "stem_moved", "nothing_in_the_backbone"])
+def test_finetune_phase_fails_when_a_frozen_parameter_moves(moved, error):
+    """Phase 21 (c): after a ``freeze_until`` step only layer4's backbone
+    parameters may move, and some must."""
+    names = ["cnn_backbone.conv1.weight", "cnn_backbone.layer3_5.conv3.weight",
+             "cnn_backbone.layer4_0.conv1.weight", "cnn_backbone.layer4_2.bn3.bias",
+             "adapt.adapt1.weight"]
+    flags = {n: n in moved for n in names}
+    if error is None:
+        assert chip_smoke._freeze_hold(flags) == ["cnn_backbone.layer4_0.conv1.weight"]
+    else:
+        with pytest.raises(AssertionError, match=error):
+            chip_smoke._freeze_hold(flags)

@@ -34,10 +34,14 @@ Strict, like ``vct``'s: a tensor the backbone needs and the state_dict
 lacks raises ``KeyError``; an unconsumed tensor or a shape mismatch raises
 ``ValueError``; nothing is written unless every tensor maps. A name with no
 porter raises ``KeyError``.
+
+``fold_input_scale_into_stem`` folds the input's 1/255 into a backbone's
+stem conv, so raw uint8 frames cast to the compute dtype go straight in.
 """
 
 from __future__ import annotations
 
+import copy
 import re
 from typing import Dict
 
@@ -47,6 +51,7 @@ from torch import nn
 
 __all__ = [
     "PORTERS",
+    "fold_input_scale_into_stem",
     "load_state_dict_file",
     "load_torch_alexnet",
     "load_torch_backbone",
@@ -268,6 +273,39 @@ def load_torch_backbone(name: str, backbone: nn.Module, state_dict) -> nn.Module
     if name not in PORTERS:
         raise KeyError(f"No weight porter for backbone {name!r}; available: {sorted(PORTERS)}")
     return PORTERS[name](backbone, state_dict)
+
+
+# Stem conv module path per family, for input-scale folding.
+_STEM_KERNEL_PATH = {
+    "resnet18": ("conv1",), "resnet34": ("conv1",), "resnet50": ("conv1",),
+    "resnet101": ("conv1",), "resnet152": ("conv1",),
+    "mobilenet_v2": ("stem", "conv"),
+    "efficientnet_b0": ("stem", "conv"),
+    "densenet121": ("conv0",),
+    "vgg16": ("conv0",), "alexnet": ("conv0",),
+    "inception_v3": ("Conv2d_1a_3x3", "conv"),
+}
+
+
+def fold_input_scale_into_stem(backbone: nn.Module, backbone_name: str,
+                               scale: float = 1.0 / 255.0) -> nn.Module:
+    """A copy of ``backbone`` with the input normalization folded into its
+    stem conv: conv(x * s, w) == conv(x, w * s), and a stem bias adds after
+    the contraction, so it stays as it is. Raw uint8 frames, cast to the
+    compute dtype (0-255 is exact in bf16), then go straight into the conv
+    stack in place of x / 255. ``backbone`` is left unchanged."""
+    if backbone_name not in _STEM_KERNEL_PATH:
+        raise KeyError(
+            f"No stem path for backbone {backbone_name!r}; "
+            f"available: {sorted(_STEM_KERNEL_PATH)}"
+        )
+    out = copy.deepcopy(backbone)
+    conv = out
+    for key in _STEM_KERNEL_PATH[backbone_name]:
+        conv = getattr(conv, key)
+    with torch.no_grad():
+        conv.weight.mul_(scale)
+    return out
 
 
 def load_state_dict_file(path: str) -> Dict[str, np.ndarray]:

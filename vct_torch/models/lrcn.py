@@ -15,16 +15,23 @@ autocast and its features come back as f32, so the head always runs in f32
 LSTM/GRU head runs the CUDA recurrences with ``scan_impl="pallas"`` and the
 plain loops otherwise, as ``vct`` maps it. A backbone none of whose
 parameters requires a gradient (frozen, the default) runs under
-``torch.no_grad``, so training records no graph through it. With
-``model.seq_shard`` on a rank mesh (``vct_torch.parallel``), the B·T frames
-of a rank's rows spread over its model axis for the backbone (``vct``'s
-sequence parallelism).
+``torch.no_grad``, so training records no graph through it. A backbone that
+trains (``model.finetune``) with ``model.remat_backbone`` on keeps none of
+its activations through the head's forward and backward:
+``torch.utils.checkpoint`` runs its forward again in the backward (``vct``'s
+``nn.remat`` of the whole module). The recompute brings every activation
+back before the backward runs through the backbone, so the step's peak
+memory stays where it was; the step pays one more backbone forward. With
+``model.seq_shard`` on a
+rank mesh (``vct_torch.parallel``), the B·T frames of a rank's rows spread
+over its model axis for the backbone (``vct``'s sequence parallelism).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vct_torch.core.config import ModelConfig
 from vct_torch.models.backbones import build_backbone
@@ -36,10 +43,18 @@ from vct_torch.parallel.mesh import ambient_mesh, gather_blocks
 __all__ = ["LRCN", "backbone_features", "build_lrcn"]
 
 
-def backbone_features(backbone: nn.Module, x, dtype: torch.dtype, mesh=None):
+def backbone_features(backbone: nn.Module, x, dtype: torch.dtype, mesh=None,
+                      remat: bool = False):
     """(B, T, H, W, 3) clips -> (B, T, F) f32 features of ``backbone`` over
     the flattened B·T frames, under bf16 autocast when ``dtype`` is bf16;
     under ``torch.no_grad`` when no backbone parameter requires a gradient.
+    Integer clips (raw uint8 into a stem with the 1/255 folded in) are cast
+    to ``dtype`` first.
+
+    With ``remat`` and a backbone that records a graph, the backbone runs
+    under ``torch.utils.checkpoint`` (non-reentrant: the recompute in the
+    backward keeps the autocast and RNG state), so the backward runs its
+    forward again instead of keeping its activations.
 
     With ``mesh`` (a rank mesh whose model axis divides B·T), each rank runs
     the backbone over its 1/model slice of the frames and the features are
@@ -53,13 +68,16 @@ def backbone_features(backbone: nn.Module, x, dtype: torch.dtype, mesh=None):
         frames = mesh.block(frames, 0, "model")
     # (frames, H, W, 3) -> NCHW view; its strides are channels-last already.
     frames = frames.permute(0, 3, 1, 2)
-    with torch.set_grad_enabled(torch.is_grad_enabled()
-                                and any(p.requires_grad for p in backbone.parameters())):
+    if not frames.is_floating_point():
+        frames = frames.to(dtype)  # 0-255 is exact in bf16
+    grad = torch.is_grad_enabled() and any(p.requires_grad for p in backbone.parameters())
+    run = (lambda f: checkpoint(backbone, f, use_reentrant=False)) if remat and grad else backbone
+    with torch.set_grad_enabled(grad):
         if dtype == torch.bfloat16:
             with torch.autocast(device_type=frames.device.type, dtype=torch.bfloat16):
-                feats = backbone(frames)
+                feats = run(frames)
         else:
-            feats = backbone(frames.to(dtype))
+            feats = run(frames.to(dtype))
     feats = feats.to(torch.float32).reshape(frames.shape[0], -1)
     if split:
         feats = gather_blocks(feats, mesh, 0, "model")
@@ -87,9 +105,11 @@ class LRCN(nn.Module):
         scan_impl: str = "associative",
         dtype: torch.dtype = torch.float32,
         seq_shard: bool = False,
+        remat_backbone: bool = False,
     ):
         super().__init__()
         self.seq_shard = seq_shard
+        self.remat_backbone = remat_backbone
         if rnn_out not in ("all", "last"):
             raise ValueError(f"rnn_out must be 'all' or 'last', got {rnn_out!r}")
         self.rnn_out = rnn_out
@@ -130,7 +150,8 @@ class LRCN(nn.Module):
         if from_features:
             return self._head(x)
         feats = backbone_features(self.cnn_backbone, x, self.dtype,
-                                  ambient_mesh() if self.seq_shard else None)
+                                  ambient_mesh() if self.seq_shard else None,
+                                  remat=self.remat_backbone)
         if features_only:
             return feats
         return self._head(feats)
@@ -164,4 +185,5 @@ def build_lrcn(cfg: ModelConfig, sequence_length: int) -> LRCN:
         scan_impl=cfg.scan_impl,
         dtype=dtype,
         seq_shard=cfg.seq_shard,
+        remat_backbone=cfg.remat_backbone,
     )
