@@ -54,14 +54,16 @@ line):
    each launched just after NaN was left in every SM's shared memory (a
    kernel that reads shared memory it did not write fails), and
    each shape printed with the kernel design it took (``design``, checked:
-   "registers" for H <= 64, "columns" above): the bench stack (B=32, T=40,
+   "registers" for H <= 64, "clusters" up to H = 256, "columns" above) and
+   a "clusters" shape with its plan (``plan``: CTAs and rows a cluster,
+   clusters, how many the card holds at once): the bench stack (B=32, T=40,
    H=56, L=4), a served request (B=4), one video (B=1), the register
    design's edges (H=64 at L=4, the default width H=32 at T=60, T=130 over
-   three staged chunks, H=16 with two k-slices), the "columns" design's
-   shared-memory plans (H=65, its first shape; H=96 LSTM: W_hh staged,
-   W_ih read through L2; H=256: both weights through L2; H=512, T=128: the
-   previous layer's outputs through L2 too), an odd H=5, T=1, and K5
-   forward and through the time flip; then the backward kernels (K3's
+   three staged chunks, H=16 with two k-slices), "clusters" at H=65, 96,
+   97 (B=5: rows left over in the last cluster), 128 at the bench batch,
+   256 at B=2 and B=33 and 128 at T=150 (staged chunks), "columns" at
+   H=512, T=128 (the previous layer's outputs through L2 too), an odd H=5,
+   T=1, and K5 forward and through the time flip; then the backward kernels (K3's
    ``selective_scan_bwd.cu``, K2/K5's ``lstm_bwd.cu``) against autograd
    through the plain versions, each gradient within 1e-5 of its largest
    magnitude, each launch after the NaN fill: K3 at the deployed step and
@@ -69,10 +71,11 @@ line):
    64, 100, 300 (two state tiles), the VideoMamba model's (B = 32 and 4,
    L=16, D=2048, N=16), each shape printed with its plan
    (``bwd_plan``); the LSTM and GRU
-   stacks, each shape printed with its backward design (checked:
-   "registers" for H <= 64, "columns" above), at the bench stack, a
+   stacks, each shape printed with its backward design (checked as the
+   forward's) and a "clusters" shape with its plan, at the bench stack, a
    request, the default width, H = 1, 5, 17, 64 (the register design's
-   widest), T=130 over three chunks, and H = 65, 256; K5 at the bench shape
+   widest), T=130 over three chunks, "clusters" at H = 65, 97, 128 (B=32,
+   and T=130), 256, and "columns" at H = 272; K5 at the bench shape
    both directions; two runs and a CUDA-graph replay bit-equal; and every
    register-design instance of the backward must report 0 spill bytes in
    the build's ptxas log;
@@ -330,7 +333,20 @@ line):
     ``model.freeze_until`` conv1 to layer3: after each, only layer4's
     backbone parameters have moved; each step's ms (the first a new
     trainer's); the phase's seconds;
-22. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
+22. the LSTM/GRU path at H = 128 (``_h128_path``) — the UCF50 LSTM
+    configuration (resnet50 in bf16, 4 layers, T=40, 80x80, scan_impl
+    "pallas") with rnn_input_size 32 and hidden_size unset, so H = 4 * 32
+    = 128 by ``resolved_hidden_size``, and its GRU and bidirectional-GRU
+    variants (dropout 0, TF32 off): each head's designs ("clusters" forward
+    and backward, checked) and plans printed; one request of four decoded
+    videos through ``classify_videos``, K2 (one launch) or K5 (2 x 4) read
+    around exactly that call, and the clips' logits through the kernels
+    within 1e-4 of the plain path's; three train steps at B=32 on the
+    backbone's features, before each every trained parameter's kernel-path
+    gradient within BWD_RTOL of its largest on the plain path from the same
+    parameters, each step's forward and backward launches read around it;
+    the phase's seconds;
+23. timing — one JSON line ``{"kernels": [...]}`` with each kernel's
     launches, error, time, plain time, bound (K3 forward and backward also at
     the VideoMamba step, B=32 T=16 D=2048 N=16, ``"config": "videomamba"``,
     launches from phase 13) and, for K2/K5, the design,
@@ -344,7 +360,7 @@ line):
     checks, by events), and a line of extra timings at the other shapes,
     with the LSTM stack's backward at T = 130 beside cuDNN's
     (``lstm_stack_bwd_T130``) and above H = 64, at the two widths of the
-    forward's "columns" rows (``lstm_stack_bwd_H65_L4``,
+    forward's "clusters" rows (``lstm_stack_bwd_H65_L4``,
     ``lstm_stack_bwd_H256_L2``, with cuDNN's backward), K3's backward at
     VideoMamba's shape
     (``selective_scan_bwd_videomamba``), K3's device time under S = 1 and 2, each
@@ -378,7 +394,12 @@ line):
     entry points' times (``bwd_timings``: K3's at the deployed step and
     VideoMamba's shape with its launches a call, K2/K5's, and K2's above
     H = 64 with cuDNN's backward beside it) for the package at ROOT, an
-    older checkout's too.
+    older checkout's too; ``python3 chip_smoke.py --rnn-timing ROOT``
+    prints only K2/K5 above H = 64 (``rnn_timings``, RNN_TIMING_ROWS: each
+    row's forward and backward entry points, LSTM and GRU, and K5 at B=32
+    T=40 H=128, beside cuDNN's, and, where the package has the "clusters"
+    design, each row's plan and every plan's device time) for the package
+    at ROOT, an older checkout's too.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -875,6 +896,16 @@ def _rnn_inputs(torch, gen, n_gates, B, T, Hd, L):
     return [t.cuda() for t in [xp] + ws]
 
 
+# K2/K5 shapes of the forward check added with "clusters" (B, T, H, L).
+RNN_CLUSTER_SHAPES = [(5, 20, 97, 2), (32, 40, 128, 4), (33, 12, 256, 2), (2, 150, 128, 2)]
+
+
+def _rnn_design(Hd: int) -> str:
+    """The K2/K5 design, forward and backward, at width Hd: "registers" up
+    to 64, "clusters" up to 256 (H_max), "columns" above."""
+    return "registers" if Hd <= 64 else "clusters" if Hd <= 256 else "columns"
+
+
 def _check_rnn(torch, gen):
     from vct_torch.ops import lstm as ops
     from vct_torch.ops._build import fill_shared_memory
@@ -890,18 +921,26 @@ def _check_rnn(torch, gen):
     # (B, T, H, L): the bench stack, a served request, one video; the
     # register design's edges (H=64 at L=4, the largest plan; the default
     # width H=32 at T=60; T=130 over three staged chunks; H=16, the widest
-    # LSTM with two k-slices per gate column); the "columns"
-    # design's shared-memory plans (H=65, its first shape; H=96: W_hh
-    # staged, W_ih read through L2; H=256: both weights through L2; H=512,
-    # T=128: the previous layer's outputs through L2 too); an odd H, T=1.
+    # LSTM with two k-slices per gate column); the "clusters" design (H=65,
+    # its first width; H=96 and 97, not multiples of a cluster's CTAs, 97
+    # with rows left over in the last cluster; H=128 at the bench batch, the
+    # H = 128 phase's width; H=256, its widest, at B=2 and at B=33, four
+    # rows a cluster and one over; H=128 at T=150, over staged chunks);
+    # "columns" above H = 256 (H=512, T=128: the previous layer's outputs
+    # through L2 too); an odd H, T=1.
     shapes = [(32, 40, 56, 4), (4, 40, 56, 4), (1, 40, 56, 4), (2, 16, 64, 4), (32, 60, 32, 3),
-              (2, 130, 17, 3), (3, 40, 16, 4), (2, 16, 65, 2), (2, 16, 96, 2), (2, 16, 256, 2),
-              (1, 128, 512, 2), (3, 7, 5, 3), (2, 1, 56, 2)]
+              (2, 130, 17, 3), (3, 40, 16, 4), (2, 16, 65, 2), (2, 16, 96, 2), RNN_CLUSTER_SHAPES[0],
+              RNN_CLUSTER_SHAPES[1], (2, 16, 256, 2), *RNN_CLUSTER_SHAPES[2:], (1, 128, 512, 2),
+              (3, 7, 5, 3), (2, 1, 56, 2)]
+    # The shapes added with "clusters" draw from a generator of their own, so
+    # that every later phase draws what it drew before them.
+    own = torch.Generator().manual_seed(22)
     for cell, n_gates in (("lstm", 4), ("gru", 3)):
         stack, scan = getattr(ops, f"{cell}_stack"), getattr(ops, f"{cell}_scan")
         scan_ref = getattr(ops, f"{cell}_scan_ref")
         for B, T_, Hd, L in shapes:
-            xp, w_hh, b_hh, w_ih, b_ih = _rnn_inputs(torch, gen, n_gates, B, T_, Hd, L)
+            g = own if (B, T_, Hd, L) in RNN_CLUSTER_SHAPES else gen
+            xp, w_hh, b_hh, w_ih, b_ih = _rnn_inputs(torch, g, n_gates, B, T_, Hd, L)
             cases = [
                 (f"{cell}_stack", L, stale(stack, xp, w_hh, b_hh, w_ih, b_ih),
                  ops.stack_ref(xp, w_hh, b_hh, w_ih, b_ih)),
@@ -916,13 +955,16 @@ def _check_rnn(torch, gen):
             torch.cuda.synchronize()
             for name, layers, got, want in cases:
                 design = ops.design(T_, Hd, layers, n_gates)
-                if design != ("registers" if Hd <= 64 else "columns"):
+                if design != _rnn_design(Hd):
                     raise AssertionError(f"{name} H={Hd}: took the {design} design")
                 torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
                 err = (got - want).abs().max().item()
                 errs[name] = max(errs[name], err)
                 shown = f" L={layers}" if name.endswith("stack") else ""
-                print(f"  {name} B={B} T={T_} H={Hd}{shown}: design {design}, max abs err {err}")
+                plan = (f", plan {ops.plan(B, T_, Hd, layers, n_gates)}"
+                        if design == "clusters" else "")
+                print(f"  {name} B={B} T={T_} H={Hd}{shown}: design {design}{plan}, max abs err "
+                      f"{err}")
     print(f"K2/K5 lstm/gru stack and scan: {len(shapes)} shapes each agree; max abs err {errs}")
     return errs
 
@@ -932,8 +974,9 @@ def _check_rnn(torch, gen):
 BWD_RTOL = 1e-5
 # K2 backward shapes (B, T, H, L): the bench stack, a request, the default
 # width; the register design's edges H = 1, 5, 17 (odd), 64 (its widest
-# plan) and T = 130 (three chunks); H = 65 and 256 ("columns", W_hh read
-# through L2 at 256).
+# plan) and T = 130 (three chunks); "clusters" at H = 65 and 256 (the
+# timed rows), 97 with rows left over in its last cluster, 128 at the bench
+# batch and over staged chunks (T = 130); "columns" above H_max (H = 272).
 BWD_LONG_T = 130
 # K3 backward shapes (B, L, D, N): the deployed step, VideoMamba's width,
 # N = 1, 24, 64, 100 at the deployed widths of a request, L = 130 (three
@@ -950,13 +993,16 @@ VIDEOMAMBA_SCAN = (2, 256, 2048, 16)
 # K3 in the VideoMamba model's bench and train steps: B=32, T=16, d_inner
 # 2048, n_state 16.
 VIDEOMAMBA_STEP = (32, 16, 2048, 16)
-# K2's backward above H = 64 ("columns") at the two widths the forward is
+# K2's backward above H = 64 ("clusters") at the two widths the forward is
 # timed at (the forward's H=256 row takes input 256 = H, the width cuDNN's
 # backward is built with).
-BWD_COLUMNS_SHAPES = [(32, 40, 65, 4), (2, 16, 256, 2)]
+BWD_WIDE_SHAPES = [(32, 40, 65, 4), (2, 16, 256, 2)]
+# Those added with "clusters", drawn from a generator of their own (as the
+# forward's RNN_CLUSTER_SHAPES).
+BWD_CLUSTER_SHAPES = [(5, 20, 97, 2), (32, 40, 128, 4), (2, BWD_LONG_T, 128, 2), (2, 12, 272, 2)]
 BWD_RNN_SHAPES = [(32, 40, 56, 4), (4, 40, 56, 4), (32, 60, 32, 3), (3, 7, 5, 3), (2, 20, 17, 3),
                   (2, 16, 1, 2), (2, 16, 64, 4), (2, BWD_LONG_T, 17, 3), (2, 16, 65, 2),
-                  *BWD_COLUMNS_SHAPES]
+                  *BWD_WIDE_SHAPES, *BWD_CLUSTER_SHAPES]
 # The backward entry points and the vct custom_vjp backward each replaces
 # (plain JAX there, no Pallas kernel).
 BWD_KERNELS = {
@@ -1064,11 +1110,13 @@ def _check_backward(torch, gen) -> dict:
             return fn(*a)
         return wrapped
 
+    own = torch.Generator().manual_seed(22)
     with mock.patch.object(ops, "_layer_bwd", stale(ops._layer_bwd)):
         for cell, n_gates in (("lstm", 4), ("gru", 3)):
             for B, T_, Hd, L in BWD_RNN_SHAPES:
-                args = _rnn_inputs(torch, gen, n_gates, B, T_, Hd, L)
-                gy = torch.randn(B, T_, Hd, generator=gen).cuda()
+                g = own if (B, T_, Hd, L) in BWD_CLUSTER_SHAPES else gen
+                args = _rnn_inputs(torch, g, n_gates, B, T_, Hd, L)
+                gy = torch.randn(B, T_, Hd, generator=g).cuda()
                 leaves = [a.clone().requires_grad_(True) for a in args]
                 got = torch.autograd.grad(getattr(ops, f"{cell}_stack")(*leaves), leaves, gy)
                 want = ops.stack_bwd_ref(*args, gy)
@@ -1076,9 +1124,11 @@ def _check_backward(torch, gen) -> dict:
                     torch, f"{cell}_stack_bwd {(B, T_, Hd, L)}", got, want,
                     ("xp0", "w_hh", "b_hh", "w_ih", "b_ih")))
                 design = ops.bwd_design(T_, Hd, n_gates)
-                if design != ("registers" if Hd <= 64 else "columns"):
+                if design != _rnn_design(Hd):
                     raise AssertionError(f"{cell}_stack_bwd H={Hd}: took the {design} design")
-                print(f"  {cell}_stack_bwd B,T,H,L={(B, T_, Hd, L)}: design {design}, "
+                plan = (f", plan {ops.plan(B, T_, Hd, L, n_gates, backward=True)}"
+                        if design == "clusters" else "")
+                print(f"  {cell}_stack_bwd B,T,H,L={(B, T_, Hd, L)}: design {design}{plan}, "
                       f"max err / max |grad| {err}")
                 if (B, T_, Hd) == (32, 40, 56):
                     y, hs, _ = ops._launch(f"{cell}_stack", n_gates, *args, save=True)
@@ -1653,9 +1703,9 @@ RESUME_ARGS = {"model.dropout": "0.25", "train.learning_rate": "1e-11",
 TRACE_KERNELS = {
     "selective_scan": (("selective_scan",), ("selective_scan_kernel",)),
     "selective_scan_bwd": (("selective_scan_bwd",), ("scan_bwd_kernel",)),
-    "lstm_gru": (tuple(RNN_KERNELS), ("rnn_reg_kernel", "rnn_stack_kernel")),
+    "lstm_gru": (tuple(RNN_KERNELS), ("rnn_reg_kernel", "rnn_cluster_kernel", "rnn_stack_kernel")),
     "lstm_gru_bwd": (tuple(n for n in BWD_KERNELS if n != "selective_scan_bwd"),
-                     ("rnn_bwd_reg_kernel", "rnn_bwd_cols_kernel")),
+                     ("rnn_bwd_reg_kernel", "rnn_bwd_cluster_kernel", "rnn_bwd_cols_kernel")),
 }
 
 
@@ -5000,6 +5050,126 @@ def _finetune_path(torch, gpu) -> None:
     print(json.dumps({"finetune_freeze_until": out["freeze_until"], "gpu": gpu}), flush=True)
     print(f"finetune phase: {out['seconds']:.1f} s ({gpu})")
 
+# Phase 22, the LSTM/GRU path at H = 128: the UCF50 LSTM configuration with
+# rnn_input_size 32 and hidden_size unset, so H = mult_factor * 32 = 128 by
+# vct's own derivation (resolved_hidden_size), the "clusters" design; its
+# GRU and bidirectional-GRU variants beside it.
+UCF50_H128 = {**{k: v for k, v in UCF50.items() if k != "hidden_size"}, "rnn_input_size": 32}
+H128_HEADS = (("lstm", False), ("gru", False), ("gru", True))
+H128_STEPS = 3
+
+
+def _h128_path(torch, gen, gpu) -> dict:
+    """For each H128_HEADS head of UCF50_H128 (resnet50 in bf16, dropout 0,
+    TF32 off, seeded weights): its designs and plans printed and checked
+    ("clusters" forward and backward); one request of four decoded videos
+    through ``classify_videos``, K2/K5's launches read around exactly that
+    call, and the same clips' logits through the kernels held within 1e-4
+    of the plain path's; then H128_STEPS train steps at B = 32 on the
+    backbone's features through the kernels, before each the gradient of
+    every trained parameter on the kernel path held within BWD_RTOL of its
+    largest on the plain path, from the same parameters, and each step's
+    forward and backward launches read around it. Returns the launches by
+    counter over the phase (the served requests and the train steps)."""
+    from vct_torch.core.config import Config
+    from vct_torch.ops import lstm as rnn_ops
+    from vct_torch.serve.deployment import classify_videos, sample_decoded_clips
+    from vct_torch.train.engine import Trainer
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = _train_counters()
+    clips = sample_decoded_clips(_synthetic_videos([30, 75, 121, 200], seed=5), "sad", T_UCF50)
+    totals = dict.fromkeys(counters, 0)
+    rows = {}
+    for rnn_type, bidirectional in H128_HEADS:
+        model = {**UCF50_H128, "rnn_type": rnn_type, "bidirectional": bidirectional,
+                 "compute_dtype": "bfloat16", "dropout": 0.0}
+        head = f"h128 {rnn_type} {'bidir' if bidirectional else 'uni'}"
+        cfg = Config().replace(**{"data.sequence_length": str(T_UCF50),
+                                  "train.batch_size": str(TRAIN_BATCH),
+                                  **{f"model.{k}": str(v) for k, v in model.items()}})
+        Hd, n_gates = cfg.model.resolved_hidden_size, 4 if rnn_type == "lstm" else 3
+        layers = 1 if bidirectional else cfg.model.rnn_layer
+        designs = (rnn_ops.design(T_UCF50, Hd, layers, n_gates),
+                   rnn_ops.bwd_design(T_UCF50, Hd, n_gates))
+        if Hd != 128 or designs != ("clusters", "clusters"):
+            raise AssertionError(f"{head}: H = {Hd}, designs {designs}")
+        row = {"H": Hd, "design": designs[0], "bwd_design": designs[1],
+               "serve_plan": rnn_ops.plan(len(clips), T_UCF50, Hd, layers, n_gates),
+               "train_plan": rnn_ops.plan(TRAIN_BATCH, T_UCF50, Hd, layers, n_gates),
+               "train_bwd_plan": rnn_ops.plan(TRAIN_BATCH, T_UCF50, Hd, layers, n_gates, True)}
+        trainer = Trainer(cfg, [f"class_{i}" for i in range(cfg.model.num_classes)])
+        net = trainer.model.eval()
+
+        # --- serving: one request, then its logits kernel vs plain ----------
+        for fn in counters.values():
+            fn.launches = 0
+        probs = classify_videos(net, clips, batch_size=len(clips))
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in counters.items()}
+        want = _expected_train_launches(model, 1, 0)
+        if launches != want:
+            raise AssertionError(f"{head}: served launches {launches} != expected {want}")
+        if not (np.isfinite(probs).all() and np.allclose(probs.sum(axis=1), 1.0, atol=1e-5)):
+            raise AssertionError(f"{head}: bad probabilities {probs}")
+        totals = {n: totals[n] + launches[n] for n in totals}
+        x = torch.as_tensor(clips).cuda().float()
+        torch.backends.cudnn.deterministic = True  # the same conv algorithms on both paths
+        with torch.inference_mode():
+            logits_k = net(x)
+            _set_scan_impl(net, "scan")
+            logits_p = net(x)
+            _set_scan_impl(net, "pallas")
+        torch.backends.cudnn.deterministic = False
+        torch.testing.assert_close(logits_k, logits_p, atol=1e-4, rtol=1e-4)
+        row["serve_launches"] = _nonzero(launches)
+        row["logits_max_abs_err"] = (logits_k - logits_p).abs().max().item()
+
+        # --- training: kernel-path gradients against the plain path's ------
+        frames = torch.rand(TRAIN_BATCH, T_UCF50, H, W, 3, generator=gen).cuda()
+        with torch.no_grad():
+            feats = net(frames, features_only=True)
+        trainer._feature_mode = True
+        state = trainer.init_state()
+        mask = torch.ones(TRAIN_BATCH, device=feats.device)
+        names = [n for n, p in net.named_parameters() if p.requires_grad]
+        worst, losses = 0.0, []
+        want = _expected_train_launches(model, 1, 1)
+        for step in range(H128_STEPS):
+            labels = torch.randint(0, cfg.model.num_classes, (TRAIN_BATCH,), generator=gen).cuda()
+            net.train()
+            grads = {}
+            for impl in ("scan", "pallas"):
+                _set_scan_impl(net, impl)
+                loss = trainer._loss_fn(net(feats, from_features=True), labels, mask)[0]
+                grads[impl] = torch.autograd.grad(loss, trainer._trained, allow_unused=True)
+            for n, a, b in zip(names, grads["pallas"], grads["scan"]):
+                worst = max(worst, _grads_close(torch, f"{head} step {step} gradient of", [a], [b],
+                                                [n])[0])
+            for fn in counters.values():
+                fn.launches = 0
+            losses.append(trainer._train_step(state, feats, labels, mask)[0].item())
+            torch.cuda.synchronize()
+            launches = {n: fn.launches for n, fn in counters.items()}
+            if launches != want or not np.isfinite(losses[-1]):
+                raise AssertionError(f"{head} step {step}: launches {launches} != expected {want}"
+                                     f", loss {losses[-1]}")
+            totals = {n: totals[n] + launches[n] for n in totals}
+        row.update({"train_steps": H128_STEPS, "losses": losses,
+                    "train_launches_a_step": _nonzero(want),
+                    "max_grad_err_over_max_grad": worst})
+        rows[head] = row
+        print(json.dumps({head: row, "gpu": gpu}), flush=True)
+        del trainer, net, state, feats
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"H = 128 phase: {len(rows)} heads, designs clusters forward and backward, launches "
+          f"{_nonzero(totals)}; {seconds:.1f} s ({gpu})", flush=True)
+    return totals
+
+
 
 def _bwd_timing(torch, gen, name, dims) -> dict:
     """One backward entry point at the main path's shape: time by events and
@@ -5067,7 +5237,9 @@ def _bwd_timing(torch, gen, name, dims) -> dict:
     lib_fn = lambda: torch.autograd.grad(out, inputs, gy, retain_graph=True)  # noqa: E731
     library_device_ms, via = _library_device_ms(torch, lib_fn)
     device_ms = _graph_ms(torch, fn, 20)
+    err = max((a - b).abs().max().item() for a, b in zip(fn(), plain()))
     return {"shape": [B, T_, Hd, L], "design": ops.bwd_design(T_, Hd, n_gates),
+            "max_abs_err": err,
             "ms": _events_ms(torch, fn, 20),
             "device_ms": device_ms, "us_per_step": device_ms / (T_ * L) * 1e3,
             "plain_ms": _events_ms(torch, plain, 3, warmup=1), "bound_ms": bound, "bound_by": by,
@@ -5110,45 +5282,59 @@ def _library_device_ms(torch, fn):
         return _busy_ms(torch, fn, 20), "profiler_kernel_union"
 
 
+# Profiler sessions a measurement may take: on the H100 a session after the
+# K2 timing rows' failed cuDNN graph captures has recorded no device
+# activity at all (in two full runs of three), and a new session records it
+# again.
+PROFILER_TRIES = 3
+
+
 def _kernels_a_call(torch, fn, calls: int = 20) -> float:
     """Device launches (kernels, copies, sets) ``torch.profiler`` records a
     call of ``fn``: ``calls`` calls in its active window, after a warm-up
     window of as many (a window without one missed the first launches).
-    Raises if it records none."""
+    A session that records no device activity is run again, up to
+    PROFILER_TRIES sessions; raises if none records any."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    counts = []
     cuda = torch.autograd.DeviceType.CUDA
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: counts.append(
-                     sum(e.device_type == cuda for e in p.events()))) as prof:
-        for _ in range(2):
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    if not counts or not counts[0]:
-        raise RuntimeError("torch.profiler recorded no device activity")
-    return counts[0] / calls
+    for _ in range(PROFILER_TRIES):
+        counts = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: counts.append(
+                         sum(e.device_type == cuda for e in p.events()))) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        if counts and counts[0]:
+            return counts[0] / calls
+    raise RuntimeError(f"torch.profiler recorded no device activity in {PROFILER_TRIES} sessions")
 
 
 def _busy_ms(torch, fn, calls: int) -> float:
     """Device time a call of ``fn``: the union of the intervals of every
     CUDA kernel, copy and set ``torch.profiler`` records over ``calls``
-    calls, over ``calls``. Raises if the profiler records none."""
+    calls, over ``calls``. A session that records no device activity is
+    run again, up to PROFILER_TRIES sessions; raises if none records any."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not spans:
-        raise RuntimeError("torch.profiler recorded no device activity")
+    for _ in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if spans:
+            break
+    else:
+        raise RuntimeError(f"torch.profiler recorded no device activity in {PROFILER_TRIES} "
+                           "sessions")
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
@@ -5190,7 +5376,9 @@ def _rnn_timing(torch, gen, ops, cell, kind, B, T_, Hd, L, in_size=512):
     bound, by = _bound_ms(4 * (B * T_ * GH + B * T_ * Hd + n_w * (Hd + 1) * GH),
                           2 * B * T_ * n_w * Hd * GH)
     with torch.inference_mode():
-        lib_diff = (lib(x)[0] - op(*args)).abs().max().item()
+        got = op(*args)
+        lib_diff = (lib(x)[0] - got).abs().max().item()
+        err = (got - plain(*args)).abs().max().item()
         device_ms = _graph_ms(torch, lambda: op(*args), 20)
         library_device_ms, via = _library_device_ms(torch, lambda: lib(x))
         return {
@@ -5200,12 +5388,23 @@ def _rnn_timing(torch, gen, ops, cell, kind, B, T_, Hd, L, in_size=512):
             "plain_ms": _events_ms(torch, lambda: plain(*args), 3, warmup=1),
             "library_ms": _events_ms(torch, lambda: lib(x), 20),
             "library_device_ms": library_device_ms, "library_device_via": via,
-            "library_max_abs_diff": lib_diff,
+            "library_max_abs_diff": lib_diff, "max_abs_err": err,
             "bound_ms": bound, "bound_by": by,
         }
 
 
-def _kernel_timings(torch, gen, launches, errs, gpu, vm_launches):
+# The kernels line's rows of phase 22 (UCF50 at H = 128, "clusters"): each
+# entry point the phase ran, the forward at its served request (B=4,
+# cuDNN's layer 0 from the model's 32-wide input), the backward at its
+# train step (B=32), the launches from that phase.
+H128_ROWS = [("lstm_stack", (4, T_UCF50, 128, 4)), ("gru_stack", (4, T_UCF50, 128, 4)),
+             ("gru_scan", (4, T_UCF50, 128, 1)),
+             ("lstm_stack_bwd", (TRAIN_BATCH, T_UCF50, 128, 4)),
+             ("gru_stack_bwd", (TRAIN_BATCH, T_UCF50, 128, 4)),
+             ("gru_scan_bwd", (TRAIN_BATCH, T_UCF50, 128, 1))]
+
+
+def _kernel_timings(torch, gen, launches, errs, gpu, vm_launches, h128_launches):
     from vct_torch.ops import lstm as rnn_ops
     from vct_torch.ops.preprocess import normalize_frames, normalize_frames_ref
     from vct_torch.ops.selective_scan import _launch as _scan_launch
@@ -5310,6 +5509,23 @@ def _kernel_timings(torch, gen, launches, errs, gpu, vm_launches):
                                        "device_ms", "us_per_step", "design", "library_device_ms",
                                        "library_device_via", "library_max_abs_diff", "shape")},
         })
+    for name, (B, T_, Hd, L) in H128_ROWS:
+        cell, kind = name.split("_")[:2]
+        if name in BWD_KERNELS:
+            source, replaces = BWD_KERNELS[name]
+            t = _bwd_timing(torch, gen, name, (B, T_, Hd, L))
+        else:
+            source, replaces = "vct_torch/csrc/lstm.cu", RNN_KERNELS[name]
+            t = _rnn_timing(torch, gen, rnn_ops, cell, kind, B, T_, Hd, L,
+                            in_size=UCF50_H128["rnn_input_size"])
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "config": "ucf50_h128", "launches": h128_launches[name],
+            "plan": rnn_ops.plan(B, T_, Hd, L, 4 if cell == "lstm" else 3,
+                                 backward=name in BWD_KERNELS),
+            **{key: t[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms", "device_ms", "us_per_step", "design",
+                                       "library_device_ms", "library_device_via", "shape")}})
     extra = {"extra_timings": {
         "pair_scores_B32_L120_flow": _k1_timing(torch, gen, 32, 2 * T, method="flow"),
         "pair_scores_B1_L120_sad": _k1_timing(torch, gen, 1, 2 * T),
@@ -5337,7 +5553,7 @@ def _kernel_timings(torch, gen, launches, errs, gpu, vm_launches):
                                            (TRAIN_BATCH, BWD_LONG_T, 56, 4)),
         **{f"lstm_stack_bwd_H{dims[2]}_L{dims[3]}": _bwd_timing(torch, gen, "lstm_stack_bwd",
                                                                  dims)
-           for dims in BWD_COLUMNS_SHAPES},
+           for dims in BWD_WIDE_SHAPES},
         "selective_scan_bwd_videomamba": _bwd_timing(torch, gen, "selective_scan_bwd",
                                                      VIDEOMAMBA_SCAN),
     }, "gpu": gpu}
@@ -5363,7 +5579,7 @@ def bwd_timings(torch, root: Path) -> dict:
     VideoMamba's shape, with the device launches a call (``torch.profiler``);
     K2/K5's at the bench stack (K5 its first layer), the LSTM stack's at
     T = BWD_LONG_T (three staged chunks), and the LSTM stack's above H = 64
-    (BWD_COLUMNS_SHAPES, the "columns" design) as ``_bwd_timing`` gives it,
+    (BWD_WIDE_SHAPES, the "clusters" design) as ``_bwd_timing`` gives it,
     with cuDNN's backward beside it. Uses only the entry points, K2's
     forward ``_launch``, ``bwd_design`` and ``stack_bwd_ref``."""
     sys.path.insert(0, str(root))
@@ -5396,10 +5612,90 @@ def bwd_timings(torch, root: Path) -> dict:
             fn = lambda: getattr(ops, name)(*args, y, gy)  # noqa: E731
         rows[name if T_ == T_UCF50 else f"{name}_T{T_}"] = {
             "ms": _events_ms(torch, fn, 20), "device_ms": _graph_ms(torch, fn, 20)}
-    for dims in BWD_COLUMNS_SHAPES:  # with cuDNN's backward beside it
+    for dims in BWD_WIDE_SHAPES:  # with cuDNN's backward beside it
         rows[f"lstm_stack_bwd_H{dims[2]}_L{dims[3]}"] = _bwd_timing(torch, gen, "lstm_stack_bwd",
                                                                      dims)
     return {"bwd_timings": rows, "root": str(root), "gpu": _gpu_line()}
+
+
+# K2/K5 rows of ``--rnn-timing`` (B, T, H, L, the input width of cuDNN's
+# layer 0): the kernel table's rows above H = 64 (H=256 at B=2, H=65 at
+# B=32), the H = 128 phase's width and H = 256 at B = 32.
+RNN_TIMING_ROWS = [(2, 16, 256, 2, 256), (32, T_UCF50, 65, 4, 512), (32, T_UCF50, 128, 4, 512),
+                   (32, T_UCF50, 256, 2, 256)]
+
+
+def _cluster_plans(torch, gen, ops, cell, B, T_, Hd, L) -> dict:
+    """The "clusters" forward (the stack, K5 at L = 1) and one backward
+    layer at (B, T, H) under every plan the kernels take: each checked
+    against its plain version first, then its device ms from a CUDA graph,
+    beside how many of its clusters the card holds at once."""
+    n_gates = 4 if cell == "lstm" else 3
+    xp, w_hh, b_hh, w_ih, b_ih = _rnn_inputs(torch, gen, n_gates, B, T_, Hd, max(L, 2))
+    args = (xp, w_hh[:L], b_hh[:L], w_ih[:L - 1], b_ih[:L - 1])
+    name = f"{cell}_stack" if L > 1 else f"{cell}_scan"
+    if L > 1:
+        want = ops.stack_ref(*args)
+    else:
+        args = (xp, w_hh[0], b_hh[0])
+        want = getattr(ops, f"{cell}_scan_ref")(*args)
+    GH = n_gates * Hd
+    x = torch.randn(B, T_, GH, generator=gen).cuda()
+    h = torch.randn(B, T_, Hd, generator=gen).tanh().cuda()
+    bx, bh = (torch.randn(2, GH, generator=gen) * 0.1).cuda()
+    dy = torch.randn(B, T_, Hd, generator=gen).cuda()
+    layer = (n_gates, x, h @ w_hh[0], bx, bh, h, w_hh[0], dy)
+    ref = [torch.empty_like(x), torch.empty_like(x), x.new_empty(2, B, GH)]
+    ops.layer_bwd_ref(*layer, *ref)
+    out = [torch.empty_like(t) for t in ref]
+    times = {}
+    for n in (8, 16):
+        if -(-Hd // n) > 16:
+            continue
+        for R in (1, 2, 4):
+            fwd = lambda: ops._launch(name, n_gates, *args, cluster=(n, R))  # noqa: E731
+            bwd = lambda: ops._layer_bwd(*layer, *out, cluster=(n, R))  # noqa: E731
+            torch.testing.assert_close(fwd()[0], want, atol=1e-5, rtol=1e-5)
+            bwd()
+            _grads_close(torch, f"{name} backward plan ({n}, {R})", out, ref, ("x", "R", "b"))
+            times[f"n{n}_R{R}"] = {
+                "fwd_device_ms": _graph_ms(torch, fwd, 20),
+                "bwd_layer_device_ms": _graph_ms(torch, bwd, 20),
+                "resident": ops.plan(B, T_, Hd, L, n_gates, cluster=n, rows=R)["resident"],
+                "resident_bwd": ops.plan(B, T_, Hd, L, n_gates, True, n, R)["resident"]}
+    return {"shape": [B, T_, Hd, L], "cell": cell, "plan": ops.plan(B, T_, Hd, L, n_gates),
+            "device_ms": times}
+
+
+def rnn_timings(torch, root: Path) -> dict:
+    """K2/K5 above H = 64 for the ``vct_torch`` package at ``root`` (this
+    checkout's or an older one's): at each of RNN_TIMING_ROWS, LSTM and GRU,
+    the stack's forward (``_rnn_timing``: device ms from a CUDA graph beside
+    cuDNN's ``nn.LSTM`` / ``nn.GRU``) and its backward entry point
+    (``_bwd_timing``, cuDNN's backward beside it), and K5 forward and
+    backward at B=32 T=40 H=128; where the package has the "clusters"
+    design, each row's plan and every plan's device time
+    (``_cluster_plans``). Uses only the entry points, ``design``,
+    ``bwd_design``, K2's forward ``_launch`` and the plain versions."""
+    sys.path.insert(0, str(root))
+    from vct_torch.ops import lstm as ops
+
+    gen = torch.Generator().manual_seed(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = {}
+    cases = [(cell, "stack", *dims) for dims in RNN_TIMING_ROWS for cell in ("lstm", "gru")]
+    cases += [(cell, "scan", 32, T_UCF50, 128, 1, 512) for cell in ("lstm", "gru")]
+    for cell, kind, B, T_, Hd, L, in_size in cases:
+        label = f"{cell}_{kind}_B{B}_T{T_}_H{Hd}_L{L}"
+        row = {"fwd": _rnn_timing(torch, gen, ops, cell, kind, B, T_, Hd, L, in_size=in_size),
+               "bwd": _bwd_timing(torch, gen, f"{cell}_{kind}_bwd", (B, T_, Hd, L))}
+        if hasattr(ops, "plan"):
+            row["plan"] = ops.plan(B, T_, Hd, L, 4 if cell == "lstm" else 3)
+            row["plans"] = _cluster_plans(torch, gen, ops, cell, B, T_, Hd, L)
+        rows[label] = row
+        print(json.dumps({label: row}), flush=True)
+    return {"rnn_timings": rows, "root": str(root), "gpu": _gpu_line()}
 
 
 def step_timings(torch, root: Path) -> dict:
@@ -5473,7 +5769,7 @@ def main(argv: list[str]) -> int:
         _mesh_rank(torch, Path(argv[1]))
         return 0
     modes = {"--k1-timing": k1_timings, "--bwd-timing": bwd_timings,
-             "--step-timing": step_timings}
+             "--step-timing": step_timings, "--rnn-timing": rnn_timings}
     if argv[:1] and argv[0] in modes:
         print(json.dumps(modes[argv[0]](torch, Path(argv[1]).resolve() if argv[1:] else here)))
         return 0
@@ -5534,7 +5830,8 @@ def main(argv: list[str]) -> int:
         _sweep_path(torch, gpu, Path(tmp) / "sweep", here)
         _mesh_path(torch, gpu, Path(tmp), here)
     _finetune_path(torch, gpu)
-    kernels = _kernel_timings(torch, gen, launches, errs, gpu, zoo["served"])
+    h128_launches = _h128_path(torch, gen, gpu)
+    kernels = _kernel_timings(torch, gen, launches, errs, gpu, zoo["served"], h128_launches)
     kernels += _bwd_rows(torch, gen, train_launches, bwd_errs, zoo["trained"])
     print(json.dumps({"kernels": kernels, "gpu": gpu}))
     print(_gpu_line())  # name, power limit: exactly as nvidia-smi prints them

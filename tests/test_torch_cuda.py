@@ -523,22 +523,139 @@ def test_rnn_register_design_reads_no_stale_shared_memory(cuda_device, name, dim
     _check_rnn_design(name, dims, cuda_device, "registers", stale=float("nan"))
 
 
-@pytest.mark.parametrize("H", [65, 96])
+@pytest.mark.parametrize("H,design", [(65, "clusters"), (96, "clusters"), (97, "clusters"),
+                                      (128, "clusters"), (256, "clusters"), (257, "columns")])
 @pytest.mark.parametrize("name", ["lstm_scan", "gru_scan", "lstm_stack", "gru_stack"])
-def test_rnn_columns_design_above_64(cuda_device, name, H):
-    _check_rnn_design(name, (2, 16, H, 2), cuda_device, "columns")
+def test_rnn_columns_design_above_64(cuda_device, name, H, design):
+    """Above H = 64: "clusters" up to its widest, H = 256 (H_max), H not a
+    multiple of the cluster's 8 or 16 CTAs included; "columns" above."""
+    _check_rnn_design(name, (2, 16, H, 2), cuda_device, design, stale=float("nan"))
 
 
-@pytest.mark.parametrize("dims", [(2, 16, 96, 2), (1, 128, 512, 2)], ids=["W_ih_in_L2", "seq_in_L2"])
+@pytest.mark.parametrize("dims", [(2, 16, 320, 2), (1, 128, 512, 2)],
+                         ids=["weights_in_L2", "seq_in_L2"])
 @pytest.mark.parametrize("name", ["lstm_stack", "gru_stack"])
 def test_rnn_stack_kernel_reads_through_l2(cuda_device, name, dims):
-    """Shapes whose weights, then also the previous layer's outputs, do not
-    fit shared memory next to W_hh and are read through L2."""
-    op = getattr(rnn_ops, name)
-    args = _rnn_args(4 if name == "lstm_stack" else 3, *dims, cuda_device)
-    got, want = op(*args), rnn_ops.stack_ref(*args)
+    """"columns" (above H_max = 256) reads every weight through L2, and the
+    previous layer's outputs too where they do not fit shared memory."""
+    _check_rnn_design(name, dims, cuda_device, "columns")
+
+
+# "clusters" shapes (B, T, H, L): H = 65, 97 (not a multiple of the
+# cluster's CTAs), 128 and 256 (H_max); rows left over in the last cluster
+# (B = 3 at two rows a cluster, B = 33 at four); T beyond one staged chunk
+# (the next layer's inputs read back from y); the bench width at B = 32.
+_CLUSTER_DIMS = [(3, 20, 65, 3), (5, 20, 97, 2), (4, 40, 128, 4), (2, 16, 256, 2),
+                 (33, 12, 256, 2), (2, 150, 128, 2), (3, 40, 256, 2), (32, 40, 128, 4)]
+_CLUSTER_IDS = ["H65", "H97", "H128", "H256", "H256_B33", "H128_T150", "H256_T40", "H128_B32"]
+
+
+@pytest.mark.parametrize("dims", _CLUSTER_DIMS, ids=_CLUSTER_IDS)
+@pytest.mark.parametrize("name", ["lstm_scan", "gru_scan", "lstm_stack", "gru_stack"])
+def test_rnn_cluster_design_matches_plain(cuda_device, name, dims):
+    """"clusters" against the plain version, each launch after NaN was left
+    in every SM's shared memory (the padding of h's rows and the peers'
+    buffers read as zeros)."""
+    _check_rnn_design(name, dims, cuda_device, "clusters", stale=float("nan"))
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_rnn_cluster_design_through_the_flip(cuda_device, cell):
+    """K5 on time-flipped inputs, as a bidirectional layer's reverse
+    direction runs it, at the H = 128 phase's width."""
+    n_gates = 4 if cell == "lstm" else 3
+    xp, w_hh, b_hh, _, _ = _rnn_args(n_gates, 8, 40, 128, 2, cuda_device)
+    flip = torch.flip(xp, dims=(1,))
+    ref = rnn_ops.lstm_scan_ref if n_gates == 4 else rnn_ops.gru_scan_ref
+    _build.fill_shared_memory(float("nan"))
+    got = torch.flip(getattr(rnn_ops, f"{cell}_scan")(flip, w_hh[1], b_hh[1]), dims=(1,))
+    want = torch.flip(ref(flip, w_hh[1], b_hh[1]), dims=(1,))
     torch.cuda.synchronize()
+    assert rnn_ops.design(40, 128, 1, n_gates) == "clusters"
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("H", [65, 128, 256])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_rnn_cluster_every_plan_matches_plain(cuda_device, cell, H):
+    """Every plan the kernels take, (8 or 16 CTAs a cluster, 1, 2 or 4
+    rows), forward and one backward layer, at B = 9 (a part-filled last
+    cluster), each after the NaN fill, against the plain versions."""
+    n_gates = 4 if cell == "lstm" else 3
+    B, T = 9, 20
+    args = _rnn_args(n_gates, B, T, H, 2, cuda_device)
+    want = rnn_ops.stack_ref(*args)
+    GH = n_gates * H
+    gen = _gen(cuda_device, H)
+    x = torch.randn(B, T, GH, device=cuda_device, generator=gen)
+    h = torch.randn(B, T, H, device=cuda_device, generator=gen).tanh()
+    w_hh = args[1][0]
+    bx, b_hh = torch.randn(2, GH, device=cuda_device, generator=gen) * 0.1
+    r, dy = h @ w_hh, torch.randn(B, T, H, device=cuda_device, generator=gen)
+    ref = [torch.empty_like(x), torch.empty_like(x), x.new_empty(2, B, GH)]
+    rnn_ops.layer_bwd_ref(n_gates, x, r, bx, b_hh, h, w_hh, dy, *ref)
+    for cluster in (8, 16):
+        if -(-H // cluster) > 16:
+            continue
+        for rows in (1, 2, 4):
+            _build.fill_shared_memory(float("nan"))
+            got, _, _ = rnn_ops._launch(f"{cell}_stack", n_gates, *args, cluster=(cluster, rows))
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+            out = [torch.empty_like(t) for t in ref]
+            _build.fill_shared_memory(float("nan"))
+            rnn_ops._layer_bwd(n_gates, x, r, bx, b_hh, h, w_hh, dy, *out, cluster=(cluster, rows))
+            torch.cuda.synchronize()
+            _assert_grads_close(out, ref, ("x", "R", "b"))
+
+
+def test_rnn_cluster_plan_is_pinned(cuda_device):
+    """The plan by the shapes: 8 CTAs a cluster up to H = 128, 16 above; one
+    row a cluster while the batch's clusters fit the card at once (30 of 8
+    up to H = 96, two CTAs an SM; 15 of 8 and 7 of 16 above), then two or
+    four, two where none fits; the card holds the plan's clusters where
+    they fit."""
+    cases = {(2, 256): (16, 1), (32, 65): (8, 2), (30, 96): (8, 1), (32, 128): (8, 4),
+             (28, 256): (16, 4), (4, 128): (8, 1), (16, 97): (8, 2), (15, 97): (8, 1),
+             (32, 256): (16, 2)}
+    for (B, H), (cluster, rows) in cases.items():
+        for backward in (False, True):
+            got = rnn_ops.plan(B, 40, H, 2, 4, backward=backward)
+            assert (got["cluster"], got["rows"]) == (cluster, rows), (B, H)
+            assert got["resident"] >= min(got["clusters"], 7), (B, H, got)
+    assert rnn_ops.plan(32, 40, 64, 2, 4) is None and rnn_ops.plan(32, 40, 257, 2, 3) is None
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_rnn_cluster_runs_and_graph_replay_are_bit_equal(cuda_device, cell):
+    """The H = 128 stack's forward and backward twice and replayed from a
+    CUDA graph, each after a NaN fill: a fixed summation order, no atomics."""
+    n_gates = 4 if cell == "lstm" else 3
+    args = _rnn_args(n_gates, 32, 40, 128, 4, cuda_device)
+    gy = torch.randn(32, 40, 128, device=cuda_device, generator=_gen(cuda_device))
+    bwd = getattr(rnn_ops, f"{cell}_stack_bwd")
+
+    def step():
+        y, hs, _ = rnn_ops._launch(f"{cell}_stack", n_gates, *args, save=True)
+        return (y, hs, *bwd(*args, hs, y, gy))
+
+    runs = []
+    for _ in range(2):
+        _build.fill_shared_memory(float("nan"))
+        runs.append([t.clone() for t in step()])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    _build.fill_shared_memory(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    runs.append([t.clone() for t in out])
+    assert all(torch.equal(a, b) for run in runs[1:] for a, b in zip(runs[0], run))
 
 
 def test_kernel_wrappers_refuse_what_they_cannot_take(cuda_device):
@@ -968,12 +1085,42 @@ def test_rnn_backward_register_design_over_chunks(cuda_device, monkeypatch, cell
 
 
 def test_rnn_backward_design_is_pinned(cuda_device):
-    """"registers" at every H <= 64, "columns" above."""
+    """"registers" at every H <= 64, "clusters" at every 64 < H <= 256,
+    "columns" above; the forward's the same (for a stack and for K5)."""
     for n_gates in (4, 3):
         for H in range(1, 65):
             assert rnn_ops.bwd_design(40, H, n_gates) == "registers", H
-        for H in (65, 256):
+        for H in range(65, 257):
+            assert rnn_ops.bwd_design(40, H, n_gates) == "clusters", H
+            assert rnn_ops.design(40, H, 4, n_gates) == rnn_ops.design(40, H, 1, n_gates) \
+                == "clusters", H
+        for H in (257, 512, 2048):
             assert rnn_ops.bwd_design(40, H, n_gates) == "columns", H
+            assert rnn_ops.design(40, H, 2, n_gates) == "columns", H
+
+
+@pytest.mark.parametrize("dims", [(3, 20, 65, 3), (5, 20, 97, 2), (2, 20, 128, 2), (2, 16, 256, 3),
+                                  (33, 12, 256, 2), (2, 130, 128, 2), (9, 70, 256, 2)],
+                         ids=["H65", "H97", "H128", "H256", "H256_B33", "H128_T130",
+                              "H256_T70"])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_rnn_backward_cluster_design_matches_plain(cuda_device, monkeypatch, cell, dims):
+    """The "clusters" backward at H = 65, 97 (not a multiple of the
+    cluster's CTAs), 128 and 256 (H_max), with rows left over in the last
+    cluster and over several staged chunks (the LSTM's c walked forward
+    first), stack and one layer, each launch after NaN was left in every
+    SM's shared memory."""
+    monkeypatch.setattr(rnn_ops, "_layer_bwd", _stale(rnn_ops._layer_bwd))
+    assert rnn_ops.bwd_design(dims[1], dims[2], 4 if cell == "lstm" else 3) == "clusters"
+    _check_rnn_backward(cell, dims, cuda_device)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_rnn_backward_columns_above_h_max(cuda_device, monkeypatch, cell):
+    """"columns" above H_max, forward and backward, after the NaN fill."""
+    monkeypatch.setattr(rnn_ops, "_layer_bwd", _stale(rnn_ops._layer_bwd))
+    assert rnn_ops.bwd_design(12, 272, 4 if cell == "lstm" else 3) == "columns"
+    _check_rnn_backward(cell, (2, 12, 272, 2), cuda_device)
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
@@ -1004,12 +1151,12 @@ def test_rnn_backward_runs_and_graph_replay_are_bit_equal(cuda_device, cell):
     assert all(torch.equal(a, b) for run in runs[1:] for a, b in zip(runs[0], run))
 
 
-@pytest.mark.parametrize("H", [5, 56, 64, 65])
+@pytest.mark.parametrize("H", [5, 56, 64, 65, 97, 256, 300])
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_rnn_backward_kernel_matches_layer_ref(cuda_device, cell, H):
     """One launch against ``layer_bwd_ref``, the same contract in plain
-    PyTorch, after a NaN fill, both designs: dx, dR and the bias sums within
-    BWD_RTOL of their largest magnitudes."""
+    PyTorch, after a NaN fill, all three designs: dx, dR and the bias sums
+    within BWD_RTOL of their largest magnitudes."""
     n_gates = 4 if cell == "lstm" else 3
     B, T, GH = 3, 30, n_gates * H
     gen = torch.Generator().manual_seed(H)

@@ -87,8 +87,8 @@ def test_scan_ref_matches_vct(cell, dims):
     assert wrapper.launches == before  # CPU tensors never reach the kernel
 
 
-@pytest.mark.parametrize("dims", [(2, 9, 6, 3), (1, 1, 5, 2), (3, 4, 7, 4)],
-                         ids=["small", "T1", "oddH_L4"])
+@pytest.mark.parametrize("dims", [(2, 9, 6, 3), (1, 1, 5, 2), (3, 4, 7, 4), (2, 6, 96, 2)],
+                         ids=["small", "T1", "oddH_L4", "H96"])
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_stack_ref_matches_vct(cell, dims):
     args = _stack_args(cell, *dims)
@@ -295,12 +295,14 @@ def test_scan_gradients_match_vct(cell, dims):
     assert bwd.launches == 0
 
 
-@pytest.mark.parametrize("dims", [(2, 9, 6, 3), (3, 4, 7, 2)], ids=["L3", "oddH_L2"])
+@pytest.mark.parametrize("dims", [(2, 9, 6, 3), (3, 4, 7, 2), (2, 6, 96, 2)],
+                         ids=["L3", "oddH_L2", "H96"])
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_stack_gradients_match_vct(cell, dims):
     """Autograd through K2's op against jax.vjp of vct's fused-stack op
     (interpret mode, custom_vjp), and ``*_stack_bwd`` the same; atol = rtol
-    = 1e-5."""
+    = 1e-5. H = 96 is a width the card's "clusters" design takes, which
+    tests/test_torch_cuda.py holds against these plain versions."""
     args = _stack_args(cell, *dims)
     gy = np.random.RandomState(6).randn(*dims[:3]).astype(np.float32)
     kernel = {"lstm": vct_lstm.lstm_stack_pallas, "gru": vct_lstm.gru_stack_pallas}[cell]

@@ -20,13 +20,14 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_dir", "check", "counters", "fill_shared_memory", "load_kernels"]
+__all__ = ["HEADERS", "SOURCES", "build_dir", "check", "counters", "fill_shared_memory", "load_kernels"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / ".vct_torch_build"
 SOURCES = ("common.cu", "pair_scores.cu", "selective_scan.cu", "selective_scan_bwd.cu",
            "lstm.cu", "lstm_bwd.cu", "ssim.cu", "normalize.cu")
+HEADERS = ("rnn_cluster.cuh",)  # included by sources: part of the build's hash
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -58,7 +59,7 @@ def _nvcc() -> str:
 def build_dir() -> Path:
     """Directory of the library built from the current sources."""
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return _BUILD_ROOT / h.hexdigest()[:16]
@@ -128,6 +129,16 @@ def _declare(lib) -> None:
     lib.vct_rnn_bwd_plan.restype = i
     lib.vct_rnn_plan.argtypes = [i, i, i, i]
     lib.vct_rnn_plan.restype = i
+    lib.vct_rnn_fwd_with.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.vct_rnn_fwd_with.restype = i
+    lib.vct_rnn_bwd_with.argtypes = [p] * 10 + [i, i, i, i, i, i, p]
+    lib.vct_rnn_bwd_with.restype = i
+    lib.vct_rnn_cluster_plan.argtypes = [i, i, i]
+    lib.vct_rnn_cluster_plan.restype = i
+    lib.vct_rnn_fwd_fit.argtypes = [i] * 7
+    lib.vct_rnn_fwd_fit.restype = i
+    lib.vct_rnn_bwd_fit.argtypes = [i] * 6
+    lib.vct_rnn_bwd_fit.restype = i
     lib.vct_error_string.argtypes = [i]
     lib.vct_error_string.restype = ctypes.c_char_p
     lib.vct_fill_shared.argtypes = [f, p]

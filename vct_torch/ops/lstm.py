@@ -12,16 +12,24 @@ Port of ``vct/ops/lstm_pallas.py``:
 
 All four launch ``vct_torch/csrc/lstm.cu`` (K5 is its ``L = 1`` case); its
 note says what bounds it on the H100 (the chain of ``T * L`` dependent
-steps) and how its two designs meet that: "registers" for ``H <= 64``,
-"columns" above. ``design`` says which one a shape takes. Weights keep
-``vct``'s ``(in, G*H)`` layout; gate orders are torch's, [i, f, g, o] and
-[r, z, n], with GRU's ``n = tanh(x_n + r * (h @ W_hn + b_hn))``.
+steps) and how its three designs meet that: "registers" for ``H <= 64``
+(a block a batch row, the weights in registers), "clusters" for ``64 < H
+<= 256`` (a thread-block cluster of 8 or 16 CTAs a group of batch rows,
+each CTA a slice of the units with its weights in registers, each step's
+h_t stored into every CTA's shared memory with ``st.async`` and waited for
+on an mbarrier) and "columns" above (a block a row, weights through L2, so
+any H runs).
+``design`` says which one a shape takes, ``plan`` the clusters' shape.
+Weights keep ``vct``'s ``(in, G*H)`` layout; gate orders are torch's, [i,
+f, g, o] and [r, z, n], with GRU's ``n = tanh(x_n + r * (h @ W_hn +
+b_hn))``.
 
 The backward (``lstm_scan_bwd``, ``gru_scan_bwd``, ``lstm_stack_bwd``,
 ``gru_stack_bwd``) launches ``vct_torch/csrc/lstm_bwd.cu`` once per layer,
 the stack's layers in reverse: the kernel walks a layer's chain of steps in
-reverse time (``layer_bwd_ref`` is its plain version; two designs,
-"registers" for ``H <= 64`` and "columns" above, ``bwd_design``). What is
+reverse time (``layer_bwd_ref`` is its plain version; the same three
+designs over the same ranges of H, ``bwd_design``, "clusters" with the
+forward's plan and each step's gate gradients stored into every CTA). What is
 not on that chain is a batched matrix product or sum over the saved outputs
 (``torch.bmm``, ``torch.mm``), as ``vct`` leaves it to XLA: every
 layer's recurrent and input parts before the layers, the weight gradients
@@ -51,16 +59,39 @@ __all__ = [
     "lstm_scan", "gru_scan", "lstm_stack", "gru_stack",
     "lstm_scan_ref", "gru_scan_ref", "stack_ref", "design",
     "lstm_scan_bwd", "gru_scan_bwd", "lstm_stack_bwd", "gru_stack_bwd",
-    "scan_bwd_ref", "stack_bwd_ref", "layer_bwd_ref", "bwd_design",
+    "scan_bwd_ref", "stack_bwd_ref", "layer_bwd_ref", "bwd_design", "plan",
 ]
 
-DESIGNS = ("columns", "registers")
+DESIGNS = ("columns", "registers", "clusters")
 
 
 def design(T: int, H: int, L: int, n_gates: int) -> str:
     """The kernel design a CUDA launch takes for these shapes, as the
     kernel library decides it (``vct_rnn_plan``); needs the built library."""
     return DESIGNS[_build.load_kernels().vct_rnn_plan(T, H, L, n_gates)]
+
+
+def plan(B: int, T: int, H: int, L: int, n_gates: int, backward: bool = False,
+         cluster: int = 0, rows: int = 0) -> dict | None:
+    """The "clusters" design's plan for a batch of B rows, as the kernel
+    library chooses it from the shapes (``vct_rnn_cluster_plan``; forward
+    and backward share it), or the plan (cluster, rows) given: ``cluster``
+    CTAs a thread-block cluster, ``rows`` batch rows a cluster, ``clusters``
+    clusters, and ``resident``, how many of them the card holds at once
+    (``cudaOccupancyMaxActiveClusters`` for the kernel and its shared
+    memory, forward or backward). None where the design does not take the
+    shapes. Needs the built library and a CUDA device."""
+    lib = _build.load_kernels()
+    code = lib.vct_rnn_cluster_plan(B, H, n_gates)
+    if not code:
+        return None
+    if not cluster:
+        cluster, rows = code >> 8, code & 255
+    fit = (lib.vct_rnn_bwd_fit(B, T, H, n_gates, cluster, rows) if backward
+           else lib.vct_rnn_fwd_fit(B, T, H, L, n_gates, cluster, rows))
+    if fit < 0:
+        _build.check(lib, -fit, f"rnn cluster plan ({cluster}, {rows}) at B={B} T={T} H={H}")
+    return {"cluster": cluster, "rows": rows, "clusters": -(-B // rows), "resident": fit}
 
 
 def _check_layer(name, n_gates, xp, w_hh, b_hh) -> None:
@@ -162,10 +193,11 @@ def _check_cuda(name, tensors: dict) -> None:
             raise ValueError(f"the {name} kernel takes contiguous tensors, {tname} is not")
 
 
-def _launch(name, n_gates, xp, w_hh, b_hh, w_ih=None, b_ih=None, save=False):
+def _launch(name, n_gates, xp, w_hh, b_hh, w_ih=None, b_ih=None, save=False, cluster=(0, 0)):
     """Run the forward kernel on CUDA tensors; return (y, saves, number of
     launches). With ``save``, saves holds the outputs of layers 0..L-2,
-    (L-1, B, T, H), for the backward."""
+    (L-1, B, T, H), for the backward. ``cluster``: the "clusters" plan
+    (CTAs a cluster, rows a cluster) to launch, (0, 0) for the shapes' own."""
     _check_cuda(name, {"xp": xp, "w_hh": w_hh, "b_hh": b_hh, "w_ih": w_ih, "b_ih": b_ih})
     B, T, GH = xp.shape
     H = GH // n_gates
@@ -177,12 +209,12 @@ def _launch(name, n_gates, xp, w_hh, b_hh, w_ih=None, b_ih=None, save=False):
     lib = _build.load_kernels()
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vct_rnn_fwd(
+        err = lib.vct_rnn_fwd_with(
             xp.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
             None if w_ih is None else w_ih.data_ptr(),
             None if b_ih is None else b_ih.data_ptr(),
             y.data_ptr(), None if hs is None or hs.numel() == 0 else hs.data_ptr(),
-            B, T, H, L, n_gates, stream,
+            B, T, H, L, n_gates, *cluster, stream,
         )
     _build.check(lib, err, f"{name} kernel launch")
     return y, hs, 1
@@ -254,16 +286,16 @@ def layer_bwd_ref(n_gates, x, r, bx, b_hh, h, w_hh, dy, dx, dr, db) -> None:
     db[1] = dx.sum(dim=1)
 
 
-def _layer_bwd(n_gates, x, r, bx, b_hh, h, w_hh, dy, dx, dr, db) -> None:
+def _layer_bwd(n_gates, x, r, bx, b_hh, h, w_hh, dy, dx, dr, db, cluster=(0, 0)) -> None:
     """One layer's backward kernel, ``layer_bwd_ref``'s contract on CUDA
-    tensors."""
+    tensors; ``cluster`` as for ``_launch``."""
     B, T, GH = x.shape
     lib = _build.load_kernels()
     with torch.cuda.device(x.device):
-        err = lib.vct_rnn_bwd(
+        err = lib.vct_rnn_bwd_with(
             x.data_ptr(), r.data_ptr(), None if bx is None else bx.data_ptr(), b_hh.data_ptr(),
             h.data_ptr(), w_hh.data_ptr(), dy.data_ptr(), dx.data_ptr(), dr.data_ptr(),
-            db.data_ptr(), B, T, GH // n_gates, n_gates,
+            db.data_ptr(), B, T, GH // n_gates, n_gates, *cluster,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "rnn backward kernel launch")
